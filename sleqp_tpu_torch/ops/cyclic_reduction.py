@@ -164,8 +164,9 @@ def bgj_blocked64(C: Tensor) -> Tensor:
     at :218).  One thread block per matrix: two 2x2 block-Schur levels down
     to 16 x 16 Gauss-Jordan leaves, the six products of each level as
     float32 FMA loops in shared memory (the reference's ``Precision.HIGHEST``
-    products; TF32 would lose the 5.8e-7 identity error this blocking buys
-    over the flat sweep).  Bound at the main path's (1561, 64, 64): it moves
+    products; TF32 keeps about three decimal digits, far from the 1e-4
+    identity bar of the reference test).  Bound at the main path's
+    (1561, 64, 64): it moves
     2 * 1561 * 64^2 * 4 B = 51 MB and does ~0.87e9 float32 operations, so
     device memory bounds it (15 us at 3.35 TB/s against 13 us at 67
     TFLOP/s).
