@@ -19,17 +19,18 @@ _PROBLEM_ARRAYS = ("x0", "u_lb", "u_ub", "x_lb", "x_ub")
 
 
 def problem_arrays_from_numpy(
-    arrays: Mapping[str, Any], dtype: torch.dtype = torch.float64, device: Any = None
+    arrays: Mapping[str, Any], device: Any = None
 ) -> dict[str, torch.Tensor]:
-    """``x0`` and the bounds as tensors, keyed as ``BlockStructuredProblem``
-    takes them (``BlockStructuredProblem(..., **problem_arrays_from_numpy(a))``).
+    """``x0`` and the bounds as float64 tensors, keyed as
+    ``BlockStructuredProblem`` takes them
+    (``BlockStructuredProblem(..., **problem_arrays_from_numpy(a))``).
     ``device=None`` means CUDA."""
     unknown = set(arrays) - set(_PROBLEM_ARRAYS)
     if unknown:
         raise ValueError(f"not problem arrays: {sorted(unknown)}; expected {_PROBLEM_ARRAYS}")
     dev = resolve_device(device)
     return {
-        name: torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+        name: torch.as_tensor(np.array(a), dtype=torch.float64, device=dev)
         for name, a in arrays.items()
     }
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import re
 from typing import Any, Callable, Optional
 
 import torch
@@ -62,10 +63,12 @@ MAX_LINESEARCH_STEPS = 30
 _MIXED_DTYPE_HINT = (
     "with Settings(compute_dtype='float32') the dynamics and cost callables "
     "are called on float32 tensors and must compute in their arguments' "
-    "dtype (for example A.to(x.dtype) @ x); a callable that closes over a "
+    "dtype and device (for example A.to(x) @ x); a callable that closes over a "
     "float64 tensor computes in float64 or fails, and the float32 route "
     "never runs it in float64"
 )
+# what PyTorch's kernels say when their operands' dtypes differ
+_DTYPE_MISMATCH = re.compile(r"dtype|scalar type", re.IGNORECASE)
 
 
 def resolve_device(device: Any = None) -> torch.device:
@@ -109,7 +112,7 @@ class BlockStructuredProblem:
     device:      where the problem's tensors live; ``None`` means CUDA
 
     The callables take tensors (``t`` a 0-d integer tensor) and must follow
-    their arguments' dtype and device, e.g. ``A.to(x.dtype) @ x``
+    their arguments' dtype and device, e.g. ``A.to(x) @ x``
     (``sleqp_tpu_torch/types.py``).  ``gauss_newton=True`` builds stage
     Hessians from the costs only, skipping the dynamics curvature.
     """
@@ -159,6 +162,7 @@ class BlockStructuredProblem:
         self.has_state_bounds = bool(
             torch.isfinite(self.x_lb).any() | torch.isfinite(self.x_ub).any()
         )
+        self._follows_dtype_checked = False
 
     def to(self, device: Any) -> "BlockStructuredProblem":
         """The same problem with its tensors on ``device`` (self if they
@@ -243,8 +247,9 @@ class BlockStructuredProblem:
         mixed = compute_dtype == torch.float32 and self.dtype == torch.float64
         hdtype = torch.float32 if mixed else self.dtype
         Zc, lamc, xTc = Z.to(hdtype), lam.to(hdtype), xT.to(hdtype)
-        if mixed:
+        if mixed and not self._follows_dtype_checked:
             self._check_follows_dtype(Zc[0], ts[0])
+            self._follows_dtype_checked = True
         # reverse mode throughout: PyTorch's forward mode gives the tangent
         # of a 0-d float32 tensor times a Python float in float64
         G = vmap(jacrev(stage_f))(Zc, ts)  # (T, nx, nz)
@@ -264,12 +269,15 @@ class BlockStructuredProblem:
     def _check_follows_dtype(self, z: Tensor, t: Tensor) -> None:
         """Raise ``TypeError`` unless the callables compute in the dtype of
         their (float32) arguments.  They have just run in the problem dtype,
-        so a failure here, or a result in another dtype, comes from a
-        callable that closes over a tensor of the problem dtype."""
+        so a dtype mismatch here, or a result in another dtype, comes from a
+        callable that closes over a tensor of the problem dtype.  Any other
+        error of a callable propagates unchanged.  Run once per problem."""
         x, u = z[: self.nx], z[self.nx :]
         try:
             outs = [self.dynamics(x, u, t), self.stage_cost(x, u, t), self.final_cost(x)]
         except RuntimeError as exc:
+            if not _DTYPE_MISMATCH.search(str(exc)):
+                raise
             raise TypeError(_MIXED_DTYPE_HINT) from exc
         if any(torch.as_tensor(o).dtype != z.dtype for o in outs):
             raise TypeError(_MIXED_DTYPE_HINT)

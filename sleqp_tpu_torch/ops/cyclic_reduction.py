@@ -87,7 +87,7 @@ def bgj_flat(C: Tensor) -> Tensor:
     :228).  One thread block per matrix keeps the k x 2k tableau in shared
     memory (8 KB at k = 32) and makes k sweeps with a barrier between them;
     device memory sees each block read once and written once.  Bound: the
-    2 B k^2 * 4 bytes it moves against the (4 k^3 + 2 k^2) B float32
+    2 B k^2 * 4 bytes it moves against the (4 k^3 + 3 k^2) B float32
     operations of the sweeps; at the main path's largest batch,
     (781, 32, 32), the bytes bound it (1.9 us at 3.35 TB/s against 1.6 us at
     67 TFLOP/s).  The sweeps run one after another inside a block, with

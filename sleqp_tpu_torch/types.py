@@ -10,7 +10,7 @@ Jacobians and Hessians are assembled by calling the user's ``dynamics``,
 demotes float64 constants that those callables close over while it traces
 them; PyTorch runs eagerly and has no such scope, and its matrix products
 refuse operands of different dtypes.  So a callable must follow its
-arguments' dtype, for example ``A.to(x.dtype) @ x``.  A callable that
+arguments' dtype (and device), for example ``A.to(x) @ x``.  A callable that
 computes in float64 on float32 arguments is reported with a ``TypeError``
 by ``BlockStructuredProblem.linearize``; it is never run in float64
 silently.

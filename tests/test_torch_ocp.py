@@ -211,6 +211,44 @@ def test_mixed_route_rejects_float64_callable(dynamics):
     assert int(ocp_solve(problem, Settings(), device="cpu").status) == Status.OPTIMAL
 
 
+def test_mixed_route_passes_other_callable_errors_through():
+    """Only a dtype mismatch becomes the dtype TypeError; any other error of
+    a callable reaches the caller unchanged."""
+    def dynamics(x, u, t):
+        if x.dtype == torch.float32:
+            raise RuntimeError("the callable's own fault")
+        return 0.9 * x + u[0]
+
+    def cost(x, u, t):
+        return x @ x + u @ u
+
+    problem = BlockStructuredProblem(dynamics, cost, 4, 2, 1, x0=[1.0, 0.0], device="cpu")
+    with pytest.raises(RuntimeError, match="the callable's own fault"):
+        ocp_solve(problem, Settings(compute_dtype="float32"), device="cpu")
+
+
+def test_readme_example_runs_on_cpu():
+    """The README's example, with device="cpu" given to the problem and the
+    solve, reaches OPTIMAL on the mixed route."""
+    import pathlib
+    import re
+
+    readme = (pathlib.Path(__file__).parent.parent / "README.md").read_text()
+    block = next(
+        b for b in re.findall(r"```python\n(.*?)```", readme, re.DOTALL)
+        if "sleqp_tpu_torch" in b
+    )
+    for old, new in [
+        ("x0=[1.0, 0.0])", 'x0=[1.0, 0.0], device="cpu")'),
+        ('Settings(compute_dtype="float32"))', 'Settings(compute_dtype="float32"), device="cpu")'),
+    ]:
+        assert old in block, old
+        block = block.replace(old, new)
+    scope = {}
+    exec(compile(block, "README.md", "exec"), scope)
+    assert int(scope["out"].status) == Status.OPTIMAL
+
+
 def test_state_numpy_round_trip():
     _, tp = make_ocp_pair(u_lb=-0.15, u_ub=0.15)
     s0 = ocp_initial_state(tp, Settings(), device="cpu")

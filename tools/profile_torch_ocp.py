@@ -1,7 +1,7 @@
 """Where one mixed-precision OCP iteration of the PyTorch port spends its
 time on the GPU.
 
-    python3 tools/profile_torch_ocp.py [--stages 1560]
+    python3 tools/profile_torch_ocp.py
 
 Builds chip_smoke.py's problem (bench.py's OCP, nx = nu = 32) on CUDA and
 times, each as the median of five runs with a synchronize on both sides:
@@ -14,7 +14,6 @@ kernels launched, and the kernels with the most device time. Needs a CUDA
 device; exits 2 without one.
 """
 
-import argparse
 import os
 import statistics
 import sys
@@ -56,13 +55,9 @@ def busy_ms(intervals):
 
 
 def main():
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--stages", type=int, default=chip_smoke.T_STAGES)
-    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_ocp: no CUDA device", file=sys.stderr)
         return 2
-    chip_smoke.T_STAGES = args.stages
     ocp, X0 = chip_smoke.bench_problem()
     mixed = Settings(compute_dtype="float32")
     s0 = ocp_initial_state(ocp, mixed, X0=X0)
