@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  They are compiled by
-``nvcc`` alone into one shared library, which is loaded with ``ctypes``: no
+one ``nvcc`` call into one shared library, which is loaded with ``ctypes``: no
 PyTorch headers, so the build takes seconds.  The library goes into
 ``_build/`` beside this file, named by a hash of the sources and flags, so
 an edited source is rebuilt and an unchanged one is not.  The build runs at
@@ -22,20 +22,27 @@ from pathlib import Path
 import torch
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "csrc" / "bgj.cu",)
+SOURCES = tuple(_HERE / "csrc" / name for name in ("bgj.cu", "thomas.cu", "chol_thomas.cu"))
+HEADERS = (_HERE / "csrc" / "gj.cuh",)
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# C signatures of the launchers in csrc/bgj.cu
+# C signatures of the launchers in csrc/*.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "bgj_flat_max_k": ([], _I),
     "bgj_flat_launch": ([_P, _P, _I, _I, _P], _I),
     "bgj_blocked64_launch": ([_P, _P, _I, _P], _I),
     "bgj_error_string": ([_I], ctypes.c_char_p),
+    "thomas_max_k": ([], _I),
+    "thomas_fwd_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "thomas_bwd_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "chol_thomas_max_k": ([], _I),
+    "chol_thomas_factor_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "chol_thomas_solve_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
 }
 
 
@@ -55,7 +62,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsleqp_kernels_{h.hexdigest()[:16]}.so"
 
@@ -128,3 +135,30 @@ def require_full_fp32() -> None:
 def stream_handle(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a raw cudaStream_t."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_operand(t: torch.Tensor, dims: int, name: str, what: str) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``dims`` axes."""
+    if t.dim() != dims:
+        raise ValueError(f"{name}: expected {what}, got {tuple(t.shape)}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    """A tensor's device address, for a launcher's pointer argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def runs_kernel(t: torch.Tensor, name: str) -> bool:
+    """Where a wrapper sends ``t``: False for a CPU tensor (the kernel's
+    plain version), True for a CUDA tensor (the kernel, with TF32 off).
+    Raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    require_full_fp32()
+    return True

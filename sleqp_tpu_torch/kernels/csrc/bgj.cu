@@ -2,8 +2,8 @@
 // (sleqp_tpu_torch/ops/cyclic_reduction.py), one thread block per matrix.
 //
 //   bgj_flat       replaces sleqp_tpu/ops/cyclic_reduction.py::_bgj_kernel:
-//                  k unpivoted Gauss-Jordan sweeps, each a rank-1 update of
-//                  the tableau [A | A^-1] held in shared memory.
+//                  k unpivoted Gauss-Jordan sweeps (gj.cuh), each a rank-1
+//                  update of the tableau [A | A^-1] held in shared memory.
 //   bgj_blocked64  replaces ::_bgj_blocked_kernel: two 2x2 block-Schur
 //                  levels (64 -> 32 -> 16) with 16x16 Gauss-Jordan leaves
 //                  and the six Schur products per level as float32 FMA
@@ -20,32 +20,12 @@
 
 #include <cuda_runtime.h>
 
+#include "gj.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kLeaf = 16;
-
-// k Gauss-Jordan sweeps over the tableau t = [A | I] (k x 2k, row-major)
-// in shared memory, leaving [I | A^-1].  f (k) and row (2k) are scratch.
-// Sweep j: f = column j - e_j, row = row j / pivot, t -= f row^T.
-__device__ void gj_sweeps(float* t, int k, float* f, float* row) {
-  const int w = 2 * k;
-  for (int j = 0; j < k; ++j) {
-    const float piv = t[j * w + j];
-    for (int i = threadIdx.x; i < k; i += blockDim.x) {
-      f[i] = t[i * w + j] - (i == j ? 1.0f : 0.0f);
-    }
-    for (int c = threadIdx.x; c < w; c += blockDim.x) {
-      row[c] = t[j * w + c] / piv;
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < k * w; e += blockDim.x) {
-      const int i = e / w;
-      t[e] -= f[i] * row[e - i * w];
-    }
-    __syncthreads();
-  }
-}
 
 __global__ void bgj_flat_kernel(const float* __restrict__ C,
                                 float* __restrict__ M, int k) {

@@ -19,6 +19,9 @@ mixed configuration (``Settings(compute_dtype="float32")`` on a float64
 problem) the stage Jacobians/Hessians are float32, their inverses come from
 the batched-inverse kernels, and S is solved by cyclic reduction with one
 float32 refinement; the state, merit and residuals stay float64.
+``tridiag_backend`` (``ocp_solve``) swaps the solve of S for another:
+``"pallas"`` puts the float64 route on float32 cyclic reduction with
+float64 refinement (``ops/pallas_tridiag.block_tridiag_solve_mp``).
 
 Precision: the float32 products here run in full float32 on the card (TF32
 is switched off, ``kernels/_build.require_full_fp32``).  The TPU ran the
@@ -45,9 +48,9 @@ import torch
 from torch.func import grad, jacrev, vjp, vmap
 
 from .kernels._build import require_full_fp32
-from .ops.block_tridiag import block_tridiag_solve, cholesky_or_nan
+from .ops.block_tridiag import block_tridiag_solve, cholesky_or_nan, spike_block_tridiag_solve
 from .ops.cyclic_reduction import batched_gj_inverse, cr_factor, cr_resolve
-from .ops.pallas_tridiag import block_tridiag_matvec
+from .ops.pallas_tridiag import _spike_chunks, block_tridiag_matvec, block_tridiag_solve_mp
 from .settings import Settings
 from .types import Status
 
@@ -369,7 +372,7 @@ def ocp_initial_state(
     )
 
 
-def _structured_kkt_step(problem, c, g, G, H, frozen, reg, mesh=None):
+def _structured_kkt_step(problem, c, g, G, H, frozen, reg, mesh=None, tridiag_backend="auto"):
     """Solve the equality-constrained QP via the dual Schur complement.
 
         min 1/2 d^T H d + g^T d   s.t.  J d = -c,  d[frozen] = 0
@@ -389,11 +392,11 @@ def _structured_kkt_step(problem, c, g, G, H, frozen, reg, mesh=None):
     dtype = H.dtype
     free = (~frozen).to(dtype)  # (T+1, nz)
     return _structured_kkt_core(
-        problem, c.to(dtype), g.to(dtype), G, H, free, reg.to(dtype)
+        problem, c.to(dtype), g.to(dtype), G, H, free, reg.to(dtype), tridiag_backend
     )
 
 
-def _structured_kkt_core(problem, c, g, G, H, free, reg):
+def _structured_kkt_core(problem, c, g, G, H, free, reg, tridiag_backend="auto"):
     T, nx, nz = problem.T, problem.nx, problem.nz
     dtype = H.dtype
 
@@ -404,10 +407,10 @@ def _structured_kkt_core(problem, c, g, G, H, free, reg):
     gm = g * free
     Gm = G * free[:T, None, :]  # zero frozen columns
 
-    # float32: one batched inverse of all stage Hessians (the blocked
-    # kernel at nz = 64), after which every "solve" is a batched product.
-    # float64: a Cholesky factor per stage.
-    use_bgj = dtype == torch.float32
+    # float32 with tridiag_backend "auto" or "cr": one batched inverse of
+    # all stage Hessians (the blocked kernel at nz = 64), after which every
+    # "solve" is a batched product.  Otherwise a Cholesky factor per stage.
+    use_bgj = dtype == torch.float32 and tridiag_backend in ("auto", "cr")
     if use_bgj:
         Hinv = batched_gj_inverse(Hm)
 
@@ -445,6 +448,13 @@ def _structured_kkt_core(problem, c, g, G, H, free, reg):
         lam = cr_resolve(fact, rhs)
         resid = rhs - block_tridiag_matvec(S_diag, S_sub, lam)
         lam = lam + cr_resolve(fact, resid)
+    elif tridiag_backend == "pallas":
+        # float32 factorization with refinement in S's dtype: for float64 S
+        # cyclic reduction (B1) and two refinements, for float32 the scan
+        lam = block_tridiag_solve_mp(S_diag, S_sub, rhs)
+    elif tridiag_backend == "spike" and dtype == torch.float32:
+        # SPIKE: sequential depth ~sqrt(T) instead of T
+        lam = spike_block_tridiag_solve(S_diag, S_sub, rhs, _spike_chunks(T))
     else:
         lam = block_tridiag_solve(S_diag, S_sub, rhs)
 
@@ -508,10 +518,11 @@ def ocp_perform_iteration(
     settings: Settings,
     state: OCPState,
     mesh=None,
+    tridiag_backend: str = "auto",
 ) -> OCPState:
     """One structured SQP iteration (problem_solver/iteration.c:350
     specialized to the block-structured subproblem layers).  Runs where
-    ``state`` lives."""
+    ``state`` lives; ``tridiag_backend`` as for ``ocp_solve``."""
     problem = problem.to(state.X.device)
     T, nx, nz = problem.T, problem.nx, problem.nz
     dtype, dev = problem.dtype, problem.device
@@ -560,7 +571,9 @@ def ocp_perform_iteration(
     # near convergence), unknowns (d, dlam), lam_qp = lam + dlam.  The dual
     # rhs then subtracts O(residual) quantities instead of O(1) ones, which
     # lets the float32 solve converge to float64 tolerances.
-    d, dlam = _structured_kkt_step(problem, c, r_stat, G, H, frozen, state.reg, mesh=mesh)
+    d, dlam = _structured_kkt_step(
+        problem, c, r_stat, G, H, frozen, state.reg, mesh=mesh, tridiag_backend=tridiag_backend
+    )
     d = d.to(dtype)
     lam_qp = state.lam + dlam.to(dtype)
     step_ok = bool(torch.isfinite(d).all() & torch.isfinite(lam_qp).all())
@@ -653,18 +666,28 @@ def ocp_solve(
     X0: Optional[Any] = None,
     max_iterations: int = 100,
     mesh=None,
+    tridiag_backend: str = "auto",
     device: Any = None,
 ) -> OCPState:
     """Initialize and iterate until OPTIMAL, a dead point or
     ``max_iterations`` (then ABORT_ITER), as ``ocp_solve_jit``'s
     ``while_loop`` does (solve.c:95-252).  Runs on ``device``: ``None``
-    means CUDA, which raises when no CUDA device is present."""
+    means CUDA, which raises when no CUDA device is present.
+
+    ``tridiag_backend`` picks the solve of the dual Schur complement S:
+    ``"auto"``/``"cr"`` as above; ``"pallas"`` ``block_tridiag_solve_mp``
+    (float32 factorization with refinement in S's dtype: cyclic reduction
+    for float64, the scan for float32); ``"spike"`` the SPIKE solve on the
+    float32 route; anything else the block-Thomas scan.  Every value other
+    than ``"auto"``/``"cr"`` factors the stage Hessians by Cholesky."""
     if settings is None:
         settings = Settings()
     problem = problem.to(resolve_device(device))
     state = ocp_initial_state(problem, settings, U0=U0, X0=X0, device=problem.device)
     while int(state.status) == Status.RUNNING and int(state.iteration) < max_iterations:
-        state = ocp_perform_iteration(problem, settings, state, mesh=mesh)
+        state = ocp_perform_iteration(
+            problem, settings, state, mesh=mesh, tridiag_backend=tridiag_backend
+        )
     if int(state.status) == Status.RUNNING:
         state = dataclasses.replace(
             state,

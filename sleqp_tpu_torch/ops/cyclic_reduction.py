@@ -20,8 +20,6 @@ or raises.  ``LAUNCHES`` counts kernel launches, and nothing else.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..kernels import _build
@@ -42,22 +40,26 @@ def _check_blocks(C: Tensor, name: str) -> None:
         raise TypeError(f"{name}: expected float32 blocks, got {C.dtype}")
 
 
-def _ptr(t: Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _kernel_output(C: Tensor, name: str) -> Tensor:
     """Validate a batch on the card and allocate the kernel's output."""
-    _check_blocks(C, name)
     if not C.is_contiguous():
         raise ValueError(f"{name}: blocks must be contiguous")
-    _build.require_full_fp32()
     return torch.empty_like(C)
 
 
 # ---------------------------------------------------------------------------
 # B1: flat Gauss-Jordan inverse
 # ---------------------------------------------------------------------------
+
+
+def fma_rank1(A: Tensor, u: Tensor, v: Tensor) -> Tensor:
+    """A - u v^T for float32 A, u (..., m), v (..., n), each entry rounded
+    once, as a fused multiply-add rounds it: the kernels' updates compile to
+    FMAs, and the reference's updates round the same way (its flat inverse
+    on the CPU equals ``bgj_flat_plain`` bit for bit).  The float32 product
+    is exact in float64."""
+    upd = torch.addcmul(A.double(), u.double()[..., :, None], v.double()[..., None, :], value=-1.0)
+    return upd.to(A.dtype)
 
 
 def bgj_flat_plain(C: Tensor) -> Tensor:
@@ -74,8 +76,8 @@ def bgj_flat_plain(C: Tensor) -> Tensor:
         rA = A[:, j, :] / piv
         rB = Binv[:, j, :] / piv
         f = colj - eye[j]
-        A = A - f[:, :, None] * rA[:, None, :]
-        Binv = Binv - f[:, :, None] * rB[:, None, :]
+        A = fma_rank1(A, f, rA)
+        Binv = fma_rank1(Binv, f, rB)
     return Binv
 
 
@@ -93,11 +95,9 @@ def bgj_flat(C: Tensor) -> Tensor:
     67 TFLOP/s).  The sweeps run one after another inside a block, with
     2k barriers, so latency rather than either bound sets its time.
     """
-    if C.device.type == "cpu":
-        _check_blocks(C, "bgj_flat")
+    _check_blocks(C, "bgj_flat")
+    if not _build.runs_kernel(C, "bgj_flat"):
         return bgj_flat_plain(C)
-    if C.device.type != "cuda":
-        raise ValueError(f"bgj_flat: unsupported device {C.device}")
     M = _kernel_output(C, "bgj_flat")
     B, k, _ = C.shape
     if B == 0:
@@ -110,7 +110,7 @@ def bgj_flat(C: Tensor) -> Tensor:
         )
     with torch.cuda.device(C.device):
         code = lib.bgj_flat_launch(
-            _ptr(C), _ptr(M), B, k, _build.stream_handle(C)
+            _build.ptr(C), _build.ptr(M), B, k, _build.stream_handle(C)
         )
     _build.check_launch(code, "bgj_flat")
     LAUNCHES["bgj_flat"] += 1
@@ -171,11 +171,9 @@ def bgj_blocked64(C: Tensor) -> Tensor:
     device memory bounds it (15 us at 3.35 TB/s against 13 us at 67
     TFLOP/s).
     """
-    if C.device.type == "cpu":
-        _check_blocks(C, "bgj_blocked64")
+    _check_blocks(C, "bgj_blocked64")
+    if not _build.runs_kernel(C, "bgj_blocked64"):
         return bgj_blocked64_plain(C)
-    if C.device.type != "cuda":
-        raise ValueError(f"bgj_blocked64: unsupported device {C.device}")
     M = _kernel_output(C, "bgj_blocked64")
     B, k, _ = C.shape
     if k != BLOCKED_K:
@@ -185,7 +183,7 @@ def bgj_blocked64(C: Tensor) -> Tensor:
     lib = _build.load()
     with torch.cuda.device(C.device):
         code = lib.bgj_blocked64_launch(
-            _ptr(C), _ptr(M), B, _build.stream_handle(C)
+            _build.ptr(C), _build.ptr(M), B, _build.stream_handle(C)
         )
     _build.check_launch(code, "bgj_blocked64")
     LAUNCHES["bgj_blocked64"] += 1
@@ -226,19 +224,16 @@ def cr_factor(D: Tensor, L: Tensor, *, tail_n: int = 1) -> dict:
 
     D: (N, k, k), L: (N-1, k, k) (L[i] couples row i+1 <- col i), both
     taken to float32.  Returns the per-level factors consumed by
-    ``cr_resolve``; level sizes halve down to one block.
+    ``cr_resolve``; level sizes halve until ``tail_n`` blocks remain
+    (default: down to one block).  With ``tail_n`` > 1 the remaining tail
+    is factored by the streaming block-Thomas kernels (B3/B4) with a zero
+    right-hand side, and ``cr_resolve`` solves it through them.
     """
-    if tail_n != 1:
-        raise NotImplementedError(
-            "cr_factor(tail_n > 1) factors its tail with the streaming "
-            "block-Thomas kernels, which are not ported yet (ROADMAP.md "
-            "queue B, kernels B3/B4)"
-        )
     D = D.to(torch.float32)
     L = L.to(torch.float32)
     k = D.shape[1]
     levels = []
-    while D.shape[0] > 1:
+    while D.shape[0] > max(tail_n, 1):
         n_in = D.shape[0]
         D, L = _pad_odd(D, L)
         n = D.shape[0]
@@ -270,8 +265,13 @@ def cr_factor(D: Tensor, L: Tensor, *, tail_n: int = 1) -> dict:
             dict(n=n, n_in=n_in, M_ev=M_ev, L_left=L_left, L_right=L_right, Wl=Wl, Wr=Wr)
         )
         D, L = Dn, Ln
-    root = batched_gj_inverse(D)  # (1, k, k)
-    return dict(levels=levels, root=root, k=k)
+    if D.shape[0] == 1:
+        return dict(levels=levels, root=batched_gj_inverse(D), tail=None, k=k)
+    from .pallas_tridiag import block_tridiag_factor_solve_pallas
+
+    zero = torch.zeros((D.shape[0], k, 1), dtype=torch.float32, device=D.device)
+    _, Minv, Lp32 = block_tridiag_factor_solve_pallas(D, L, zero)
+    return dict(levels=levels, root=None, tail=dict(Minv=Minv, Lp32=Lp32), k=k)
 
 
 def cr_resolve(fact: dict, b: Tensor) -> Tensor:
@@ -305,7 +305,12 @@ def cr_resolve(fact: dict, b: Tensor) -> Tensor:
         stack.append(b_ev)
         b3 = bn
 
-    x = torch.einsum("mij,mjr->mir", fact["root"], b3)  # (1, k, r)
+    if fact["tail"] is None:
+        x = torch.einsum("mij,mjr->mir", fact["root"], b3)  # (1, k, r)
+    else:
+        from .pallas_tridiag import block_tridiag_resolve_pallas
+
+        x = block_tridiag_resolve_pallas(fact["tail"]["Minv"], fact["tail"]["Lp32"], b3)
 
     # -- back-substitution sweep ---------------------------------------
     zero_kk = torch.zeros((1, k, k), dtype=torch.float32, device=dev)

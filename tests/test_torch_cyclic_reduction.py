@@ -86,9 +86,15 @@ def test_cr_resolve_reuses_factor_for_multiple_rhs():
 
 
 def test_cr_factor_tail_needs_unported_kernels():
-    D, L, _ = spd_block_tridiag(8, 2, seed=0)
-    with pytest.raises(NotImplementedError, match="B3/B4"):
-        cr.cr_factor(torch.as_tensor(D), torch.as_tensor(L), tail_n=4)
+    """The tail of cr_factor(tail_n > 1) goes through the streaming Thomas
+    kernels (B3/B4, ported since): the factorization keeps their inverses
+    of the last 4 blocks, and cr_resolve solves through them."""
+    D, L, b = spd_block_tridiag(8, 2, seed=0)
+    fact = cr.cr_factor(torch.as_tensor(D), torch.as_tensor(L), tail_n=4)
+    assert fact["root"] is None and fact["tail"]["Minv"].shape == (4, 2, 2)
+    x = cr.cr_resolve(fact, torch.as_tensor(b))
+    ref = np.asarray(jax_thomas(jnp.asarray(D), jnp.asarray(L), jnp.asarray(b)))
+    assert np.abs(x.double().numpy() - ref).max() / np.abs(ref).max() < 5e-6
 
 
 @pytest.mark.parametrize("rhs_cols", [None, 3])

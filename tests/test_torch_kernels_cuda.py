@@ -77,3 +77,78 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         cr.bgj_flat(_spd_blocks(1, 96, 0, cuda))
     with pytest.raises(ValueError, match="k=64"):
         cr.bgj_blocked64(_spd_blocks(1, 32, 0, cuda))
+
+
+# ---- B3/B4: the streaming block-Thomas sweeps (ops/pallas_tridiag.py) ----
+# ---- B5/B6: the batched Cholesky block Thomas (ops/pallas_chol_tridiag.py)
+
+def _tridiag(lead, k, r, seed, device):
+    """SPD diagonal blocks (C C^T + 2k I), couplings 0.3 N(0,1) shifted so
+    that Lp[..., 0] = 0, and right-hand sides; float32 on ``device``."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal(lead + (k, k))
+    D = A @ np.swapaxes(A, -1, -2) + 2 * k * np.eye(k)
+    Lp = 0.3 * rng.standard_normal(lead + (k, k))
+    Lp[..., 0, :, :] = 0.0
+    b = rng.standard_normal(lead + (k, r))
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in (D, Lp, b)]
+
+
+def _rel(K, P):
+    """max |K - P| / max |P|: both are float32 recursions of the same
+    arithmetic whose sums run in another order; 1e-4 is the bar of the
+    reference's own float32 kernels (tests/test_pallas_tridiag.py:274)."""
+    return float((K - P).abs().max() / P.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,k,r", [(160, 64, 1), (13, 3, 3), (1, 4, 1)])
+def test_thomas_kernels_match_plain_versions(cuda, N, k, r):
+    from sleqp_tpu_torch.ops import pallas_tridiag as pt
+
+    D, Lp, b = _tridiag((N,), k, r, seed=N + k, device=cuda)
+    before = dict(pt.LAUNCHES)
+    y, M = pt.thomas_fwd(D, Lp, b, factor=True)
+    x = pt.thomas_bwd(M, Lp, y)
+    y2, none = pt.thomas_fwd(M, Lp, b, factor=False)
+    torch.cuda.synchronize()
+    assert none is None
+    assert pt.LAUNCHES == {"thomas_fwd": before["thomas_fwd"] + 2, "thomas_bwd": before["thomas_bwd"] + 1}
+    y_p, M_p = pt.thomas_fwd_plain(D, Lp, b, True)
+    assert _rel(M, M_p) <= 1e-4
+    assert _rel(y, y_p) <= 1e-4
+    assert _rel(x, pt.thomas_bwd_plain(M_p, Lp, y_p)) <= 1e-4
+    assert _rel(y2, pt.thomas_fwd_plain(M_p, Lp, b, False)[0]) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,c,k,r", [(1, 160, 64, 1), (4, 40, 64, 8), (2, 8, 128, 1)])
+def test_chol_thomas_kernels_match_plain_versions(cuda, P, c, k, r):
+    from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc
+
+    D, Lp, b = _tridiag((P, c), k, r, seed=P + c + k, device=cuda)
+    before = dict(pc.LAUNCHES)
+    chols = pc.chol_thomas_factor(D, Lp)
+    x = pc.chol_thomas_solve(chols, Lp, b)
+    torch.cuda.synchronize()
+    assert pc.LAUNCHES == {k_: v + 1 for k_, v in before.items()}
+    chols_p = pc.chol_thomas_factor_plain(D, Lp)
+    assert _rel(chols, chols_p) <= 1e-4
+    assert float(chols.triu(1).abs().max()) == 0.0
+    assert _rel(x, pc.chol_thomas_solve_plain(chols_p, Lp, b)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_thomas_kernels_reject_what_they_cannot_take(cuda):
+    from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc
+    from sleqp_tpu_torch.ops import pallas_tridiag as pt
+
+    D, Lp, b = _tridiag((3,), 96, 1, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        pt.thomas_fwd(D, Lp, b, factor=True)
+    D, Lp, b = _tridiag((1, 3), 160, 1, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        pc.chol_thomas_factor(D, Lp)
+    D, Lp, b = _tridiag((3,), 8, 2, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.thomas_bwd(D, Lp, b.transpose(1, 2).contiguous().transpose(1, 2))
