@@ -9,9 +9,11 @@ run from a checkout of the repository, on a machine with a CUDA device and
 1. build the CUDA kernels from ``sleqp_tpu_torch/kernels/csrc`` (one nvcc
    call for the three sources);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths give it, and time the kernel and the plain
-   version (and, for the batched inverses, ``torch.linalg.inv`` as a
-   yardstick, never called by the port);
+   shapes the main paths give it, and time the kernel, the plain version
+   and a library call on the same inputs as a yardstick, never called by
+   the port (``torch.linalg.inv`` for the batched inverses; for the
+   Thomas kernels the dense Cholesky factorization, triangular solve or
+   Cholesky solve of the same system, assembled);
 3. the mixed-precision OCP solve: ``ocp_solve`` with
    ``Settings(compute_dtype="float32")`` on the multistage problem of
    ``bench.py`` (T = 1560, nx = nu = 32, n = 99 840), with the kernels'
@@ -20,7 +22,8 @@ run from a checkout of the repository, on a machine with a CUDA device and
 5. ``bench.py``'s structured-KKT system (N = 160 blocks of k = 64,
    n = 10 240) through ``block_tridiag_solve_mp`` on four backends, the
    streaming Thomas factor-solve and resolve, and cyclic reduction with a
-   streaming tail, against the float64 block-Thomas solve;
+   streaming tail, against the float64 block-Thomas solve; and the dense
+   float64 Cholesky solve of the assembled system as the library yardstick;
 6. the float64 OCP solve with ``tridiag_backend="pallas"`` (float32 cyclic
    reduction with float64 refinement) on the problem of phase 3;
 7. one JSON line describing each kernel, then the result line.
@@ -180,45 +183,46 @@ def read_counts():
     return {key: n for counts in COUNTS for key, n in counts.items()}
 
 
-def flat_flops(k):
-    # k sweeps: k subtractions for f, 2k divisions for the pivot row, and
-    # a k x 2k multiply-subtract update
-    return k * (4 * k * k + 3 * k)
-
-
-def blocked_flops(k):
-    # per Schur level of half h: two half inverses, six h^3 products, and
-    # the two h^2 additions (S = D - ..., Ai + ...)
-    if k == 16:
-        return flat_flops(16)
-    h = k // 2
-    return 2 * blocked_flops(h) + 12 * h**3 + 2 * h * h
+def spd_inverse_flops(k):
+    """The least arithmetic of the inverse of an SPD k x k block: its
+    Cholesky factor G, G^-1 and the symmetric product G^-T G^-1, k^3 / 3
+    float32 operations each."""
+    return k**3
 
 
 def bound(name, B, k):
     bytes_moved = 2 * B * k * k * 4
-    flops = B * (flat_flops(k) if name == "bgj_flat" else blocked_flops(k))
+    flops = B * spd_inverse_flops(k)
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def tridiag_flops(name, lead, k, r):
-    """Float32 operations of one call, from its shapes: (whole work, work of
-    one chain).  Thomas (B3 with factor, per stage): M L^T and L (M L^T),
-    2 k^3 each, the subtraction, the Gauss-Jordan sweeps and the two
-    products with y.  Cholesky Thomas (B5, per stage after the first): two
-    triangular solves with k right-hand sides (2 k^3), W L^T (2 k^3), the
-    subtraction and a Cholesky (k^3 / 3)."""
+    """Float32 operations one call needs at the least, from its shapes:
+    (whole work, work of one chain).  Stage 0 has no coupling (Lp[0] = 0).
+    A product whose result is symmetric counts half.
+
+    Thomas (B3 with factor), per later stage: C_i = D_i - Z Z^T with
+    Z = L_{i-1} G_{i-1}^-T (a triangular product, k^3, where G_{i-1} is the
+    Cholesky factor behind M_{i-1}), Z Z^T (symmetric, k^3), the
+    subtraction, the SPD inverse (k^3), and y_i = M_i (b_i - L_{i-1} y_{i-1})
+    (4 k^2 r).  Cholesky Thomas (B5), per later stage: Z = L_i G_{i-1}^-T by
+    one triangular solve (k^3), Z Z^T (k^3), the subtraction and the
+    Cholesky (k^3 / 3).  The substitutions: each k x k block meets each
+    right-hand side once per sweep (2 k^2 r), and B6's two triangular solves
+    per block and sweep cost one such product."""
     chains = lead[0] if len(lead) == 2 else 1
     n = lead[-1]
     chol = k**3 / 3
+    sub = 2 * k * k * r + k * r  # b - L y, for one stage's coupling
     per = {
-        "thomas_fwd": n * (4 * k**3 + k * k + flat_flops(k) + 4 * k * k * r + k * r),
-        "thomas_fwd_resolve": n * (4 * k * k * r + k * r),
-        "thomas_bwd": n * (4 * k * k * r + k * r),
-        "chol_thomas_factor": chol + (n - 1) * (4 * k**3 + k * k + chol),
-        "chol_thomas_solve": n * 8 * k * k * r,
+        "thomas_fwd": spd_inverse_flops(k) + 2 * k * k * r
+        + (n - 1) * (2 * k**3 + k * k + spd_inverse_flops(k) + sub + 2 * k * k * r),
+        "thomas_fwd_resolve": 2 * k * k * r + (n - 1) * (sub + 2 * k * k * r),
+        "thomas_bwd": (n - 1) * (sub + 2 * k * k * r),
+        "chol_thomas_factor": chol + (n - 1) * (2 * k**3 + k * k + chol),
+        "chol_thomas_solve": 2 * k * k * r + (n - 1) * (2 * sub + 4 * k * k * r),
     }[name]
     return chains * per, per
 
@@ -254,6 +258,19 @@ def tridiag_inputs(lead, k, r, seed):
     Lp[..., 0, :, :] = 0.0
     b = rng.standard_normal(lead + (k, r))
     return [torch.tensor(a, dtype=torch.float32, device="cuda") for a in (D, Lp, b)]
+
+
+def assemble(D, L):
+    """The dense symmetric matrix of diagonal blocks D (N, k, k) and
+    sub-diagonal blocks L (N-1, k, k), for the library yardsticks (the port
+    never assembles it)."""
+    N, k, _ = D.shape
+    A = torch.zeros((N, k, N, k), dtype=D.dtype, device=D.device)
+    i = torch.arange(N, device=D.device)
+    A[i, :, i, :] = D
+    A[i[1:], :, i[:-1], :] = L
+    A[i[:-1], :, i[1:], :] = L.transpose(1, 2)
+    return A.reshape(N * k, N * k)
 
 
 def rel_max(K, P):
@@ -383,21 +400,34 @@ def main():
             res_plain_ms = time_call(lambda: pt.thomas_fwd_plain(M, Lp, b, False), reps=1, warm=False)
             bwd_ms = time_call(lambda: pt.thomas_bwd(M, Lp, y))
             bwd_plain_ms = time_call(lambda: pt.thomas_bwd_plain(M, Lp, y), reps=1, warm=False)
+            # library yardsticks on the same system, assembled dense: the
+            # Cholesky factorization (thomas_fwd factors and substitutes),
+            # and the back substitution with its factor (thomas_bwd)
+            A = assemble(D, Lp[1:])
+            G = torch.linalg.cholesky_ex(A).L
+            lib_fwd = time_call(lambda: torch.linalg.cholesky_ex(A), reps=5)
+            lib_bwd = time_call(lambda: torch.linalg.solve_triangular(
+                G.mT, y.reshape(N * k, r), upper=True))
+            del A, G
             b_fwd = tridiag_bound("thomas_fwd", (N,), k, r)
             b_res = tridiag_bound("thomas_fwd_resolve", (N,), k, r)
             b_bwd = tridiag_bound("thomas_bwd", (N,), k, r)
-            for name, t, tp, bnd, err in (("thomas_fwd", ms, plain_ms, b_fwd, abs_fwd),
-                                          ("thomas_bwd", bwd_ms, bwd_plain_ms, b_bwd, abs_bwd)):
+            for name, t, tp, bnd, err, lib in (
+                ("thomas_fwd", ms, plain_ms, b_fwd, abs_fwd, lib_fwd),
+                ("thomas_bwd", bwd_ms, bwd_plain_ms, b_bwd, abs_bwd, lib_bwd),
+            ):
                 results[name] = dict(
                     name=name, route="cuda", source=TRIDIAG_KERNELS[name][0],
                     replaces=TRIDIAG_KERNELS[name][1], max_abs_err=err, ms=t, plain_ms=tp,
-                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib,
                 )
             line += (f"; fwd (factor) {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_fwd[0]:.5f} ms "
                      f"({b_fwd[1]}), one-SM bound {b_fwd[2]:.4f} ms; fwd (resolve) {res_ms:.4f} ms, "
                      f"plain {res_plain_ms:.4f} ms, bound {b_res[0]:.5f} ms ({b_res[1]}), one-SM "
                      f"bound {b_res[2]:.5f} ms; bwd {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, "
-                     f"bound {b_bwd[0]:.5f} ms ({b_bwd[1]}), one-SM bound {b_bwd[2]:.5f} ms")
+                     f"bound {b_bwd[0]:.5f} ms ({b_bwd[1]}), one-SM bound {b_bwd[2]:.5f} ms; "
+                     f"dense n={N * k} torch.linalg.cholesky_ex {lib_fwd:.4f} ms, "
+                     f"solve_triangular {lib_bwd:.4f} ms")
         log(2, line)
         check(max(rels.values()) <= TRIDIAG_RTOL,
               f"thomas kernels ({N},{k},{r}) disagree with their plain versions: {rels}")
@@ -440,19 +470,29 @@ def main():
             f_plain = time_call(lambda: pc.chol_thomas_factor_plain(D, Lp), reps=1, warm=False)
             s_ms = time_call(lambda: pc.chol_thomas_solve(ch, Lp, b), reps=10)
             s_plain = time_call(lambda: pc.chol_thomas_solve_plain(ch, Lp, b), reps=1, warm=False)
+            # library yardsticks on the same system (P = 1), assembled
+            # dense: its Cholesky factorization and the solve with it
+            A = assemble(D[0], Lp[0, 1:])
+            G = torch.linalg.cholesky_ex(A).L
+            lib_f = time_call(lambda: torch.linalg.cholesky_ex(A), reps=5)
+            lib_s = time_call(lambda: torch.cholesky_solve(b[0].reshape(c * k, r), G))
+            del A, G
             b_f = tridiag_bound("chol_thomas_factor", (P, c), k, r)
             b_s = tridiag_bound("chol_thomas_solve", (P, c), k, r)
-            for name, t, tp, bnd, err in (("chol_thomas_factor", f_ms, f_plain, b_f, abs_f),
-                                          ("chol_thomas_solve", s_ms, s_plain, b_s, abs_s)):
+            for name, t, tp, bnd, err, lib in (
+                ("chol_thomas_factor", f_ms, f_plain, b_f, abs_f, lib_f),
+                ("chol_thomas_solve", s_ms, s_plain, b_s, abs_s, lib_s),
+            ):
                 results[name] = dict(
                     name=name, route="cuda", source=TRIDIAG_KERNELS[name][0],
                     replaces=TRIDIAG_KERNELS[name][1], max_abs_err=err, ms=t, plain_ms=tp,
-                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib,
                 )
             line += (f"; factor {f_ms:.4f} ms, plain {f_plain:.4f} ms, bound {b_f[0]:.5f} ms "
                      f"({b_f[1]}), one-SM bound {b_f[2]:.4f} ms; solve {s_ms:.4f} ms, plain "
                      f"{s_plain:.4f} ms, bound {b_s[0]:.5f} ms ({b_s[1]}), one-SM bound "
-                     f"{b_s[2]:.5f} ms")
+                     f"{b_s[2]:.5f} ms; dense n={c * k} torch.linalg.cholesky_ex "
+                     f"{lib_f:.4f} ms, cholesky_solve {lib_s:.4f} ms")
         log(2, line)
         check(max(rels.values()) <= TRIDIAG_RTOL,
               f"chol_thomas kernels ({P},{c},{k},{r}) disagree with their plain versions: {rels}")
@@ -529,6 +569,23 @@ def main():
                f"{ms:.3f} ms per solve (median of 5); relative residual {resid:.3e}; "
                f"max |x - x_f64| {err:.3e}")
         check(resid <= 1e-10, f"{backend}: relative residual {resid:.3e} above 1e-10")
+    # the library yardstick, never called by the port: the same float64
+    # system assembled dense, factored and solved by torch.linalg
+    A = assemble(D, L)
+
+    def dense_solve():
+        G = torch.linalg.cholesky_ex(A).L
+        return torch.cholesky_solve(b.reshape(N * k, 1), G).reshape(N, k)
+
+    dense_ms = host_ms(dense_solve, reps=5)
+    x = dense_solve()
+    resid = float((b - pt.block_tridiag_matvec(D, L, x)).abs().max()) / b_scale
+    err = float((x - x64).abs().max())
+    del A
+    log(5, f"structured KKT n={N * k}, dense float64 torch.linalg.cholesky_ex + "
+           f"torch.cholesky_solve (yardstick): {dense_ms:.3f} ms per solve (median of 5); "
+           f"relative residual {resid:.3e}; max |x - x_f64| {err:.3e}")
+    check(resid <= 1e-10, f"dense yardstick: relative residual {resid:.3e} above 1e-10")
     x_fs, Minv, Lp32 = pt.block_tridiag_factor_solve_pallas(D, L, b)
     x_rs = pt.block_tridiag_resolve_pallas(Minv, Lp32, b)
     x_cr = cr.cr_resolve(cr.cr_factor(D, L, tail_n=16), b)

@@ -37,10 +37,8 @@ _SIGNATURES = {
     "bgj_flat_launch": ([_P, _P, _I, _I, _P], _I),
     "bgj_blocked64_launch": ([_P, _P, _I, _P], _I),
     "bgj_error_string": ([_I], ctypes.c_char_p),
-    "thomas_max_k": ([], _I),
     "thomas_fwd_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "thomas_bwd_launch": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "chol_thomas_max_k": ([], _I),
     "chol_thomas_factor_launch": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "chol_thomas_solve_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
 }
@@ -145,6 +143,39 @@ def check_operand(t: torch.Tensor, dims: int, name: str, what: str) -> None:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def check_chain(name: str, blocks: dict, rhs: torch.Tensor | None = None) -> None:
+    """Raise unless a recursion's operands agree: every block operand
+    (label -> (..., k, k) tensor) has the first one's shape, square blocks,
+    and the right-hand sides ``rhs`` (..., k, r) the same leading dimensions
+    and k; all on one device.  A kernel takes raw pointers and sizes from
+    one operand, so a mismatch would read past another's allocation."""
+    (first, ref), *rest = blocks.items()
+    shape = tuple(ref.shape)
+    if shape[-1] != shape[-2]:
+        raise ValueError(f"{name}: {first} blocks are not square: {shape}")
+    operands = [(label, t, shape) for label, t in rest]
+    if rhs is not None:
+        operands.append(("the right-hand sides", rhs, shape[:-1] + (rhs.shape[-1],)))
+    for label, t, want in operands:
+        if tuple(t.shape) != want:
+            raise ValueError(
+                f"{name}: {label} is {tuple(t.shape)}, expected {want} to match {first} {shape}"
+            )
+        if t.device != ref.device:
+            raise ValueError(f"{name}: {label} is on {t.device}, {first} on {ref.device}")
+
+
+def rhs_tiles(b: torch.Tensor, cols: int) -> list:
+    """b (..., k, r) as contiguous tiles of at most ``cols`` columns, for a
+    kernel that keeps its right-hand sides in shared memory."""
+    return [t.contiguous() for t in torch.split(b, cols, dim=-1)]
+
+
+def join_tiles(tiles: list) -> torch.Tensor:
+    """The tiles of ``rhs_tiles`` side by side again."""
+    return tiles[0] if len(tiles) == 1 else torch.cat(tiles, dim=-1)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

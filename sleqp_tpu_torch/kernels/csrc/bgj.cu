@@ -190,12 +190,10 @@ int bgj_flat_launch(const float* C, float* M, int batch, int k,
 int bgj_blocked64_launch(const float* C, float* M, int batch,
                          cudaStream_t stream) {
   if (batch <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kBlockedSmemFloats * static_cast<int>(sizeof(float));
+  const size_t smem = kBlockedSmemFloats * sizeof(float);
   // just above the 48 KB a launch gets without asking
-  cudaError_t err = cudaFuncSetAttribute(
-      bgj_blocked64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int err = set_smem(reinterpret_cast<const void*>(bgj_blocked64_kernel), smem);
+  if (err != 0) return err;
   bgj_blocked64_kernel<<<batch, kThreads, smem, stream>>>(C, M);
   return static_cast<int>(cudaGetLastError());
 }

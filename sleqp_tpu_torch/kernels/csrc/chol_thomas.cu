@@ -26,11 +26,16 @@
 
 #include <cuda_runtime.h>
 
+#include "gj.cuh"
+
 namespace {
 
 constexpr int kFactorThreads = 512;
 constexpr int kSolveThreads = 256;
 constexpr int kMaxK = 128;  // pallas_chol_tridiag.MAX_CHOL_BLOCK
+// right-hand sides per launch (pallas_chol_tridiag.RHS_TILE): the solve
+// keeps 2 k r floats in shared memory, 128 KB at k = 128
+constexpr int kMaxR = 128;
 
 // Rows y of Y (n x k, row-major, in place) become y C^-1 with C = G G^T and
 // G lower triangular (leading dimension k): first solve z G^T = y
@@ -178,17 +183,9 @@ __global__ void chol_thomas_solve_kernel(const float* __restrict__ chol,
   }
 }
 
-int set_smem(const void* kernel, size_t bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
-}
-
 }  // namespace
 
 extern "C" {
-
-int chol_thomas_max_k() { return kMaxK; }
 
 int chol_thomas_factor_launch(const float* D, const float* Lp, float* chol,
                               int p, int c, int k, cudaStream_t stream) {
@@ -206,7 +203,7 @@ int chol_thomas_factor_launch(const float* D, const float* Lp, float* chol,
 int chol_thomas_solve_launch(const float* chol, const float* Lp,
                              const float* b, float* x, int p, int c, int k,
                              int r, cudaStream_t stream) {
-  if (p <= 0 || c <= 0 || k <= 0 || k > kMaxK || r <= 0) {
+  if (p <= 0 || c <= 0 || k <= 0 || k > kMaxK || r <= 0 || r > kMaxR) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = 2 * k * r * sizeof(float);

@@ -1,5 +1,15 @@
-// Device code shared by the kernels of bgj.cu and thomas.cu.
+// Code shared by the kernels of bgj.cu, thomas.cu and chol_thomas.cu.
 #pragma once
+
+#include <cuda_runtime.h>
+
+// Let `kernel` take `bytes` of dynamic shared memory (a launch gets 48 KB
+// without asking); returns the cudaError_t as an int, 0 on success.
+inline int set_smem(const void* kernel, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
 
 // k Gauss-Jordan sweeps over the tableau t = [A | I] (k x 2k, row-major)
 // in shared memory, leaving [I | A^-1].  f (k) and row (2k) are scratch.

@@ -31,6 +31,9 @@ namespace {
 constexpr int kFwdThreads = 512;
 constexpr int kBwdThreads = 256;
 constexpr int kMaxK = 64;  // pallas_tridiag.MAX_PALLAS_BLOCK
+// right-hand sides per launch (pallas_tridiag.RHS_TILE): thomas_fwd keeps
+// 4k^2 + 3k + 2kr floats in shared memory, 130 KB at k = 64
+constexpr int kMaxR = 128;
 
 // out[a][q] = base[a][q] - sum_m A[a][m] v[m][q] for a k x k A (leading
 // dimension lda) and k x r v, out; base may alias nothing that is read.
@@ -145,22 +148,14 @@ __global__ void thomas_bwd_kernel(const float* __restrict__ M,
   }
 }
 
-int set_smem(const void* kernel, size_t bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
-}
-
 }  // namespace
 
 extern "C" {
 
-int thomas_max_k() { return kMaxK; }
-
 int thomas_fwd_launch(const float* D, const float* Lp, const float* b,
                       float* y, float* M, int n, int k, int r, int factor,
                       cudaStream_t stream) {
-  if (n <= 0 || k <= 0 || k > kMaxK || r <= 0) {
+  if (n <= 0 || k <= 0 || k > kMaxK || r <= 0 || r > kMaxR) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = (4 * k * k + 3 * k + 2 * k * r) * sizeof(float);
@@ -174,7 +169,7 @@ int thomas_fwd_launch(const float* D, const float* Lp, const float* b,
 
 int thomas_bwd_launch(const float* M, const float* Lp, const float* y,
                       float* x, int n, int k, int r, cudaStream_t stream) {
-  if (n <= 0 || k <= 0 || k > kMaxK || r <= 0) {
+  if (n <= 0 || k <= 0 || k > kMaxK || r <= 0 || r > kMaxR) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = 2 * k * r * sizeof(float);

@@ -32,9 +32,15 @@ LAUNCHES = {"chol_thomas_factor": 0, "chol_thomas_solve": 0}
 # the largest block the kernels take: three 64 KB tiles of shared memory
 MAX_CHOL_BLOCK = 128
 
+# Right-hand sides one launch of the solve takes (chol_thomas.cu's kMaxR):
+# it keeps two r x k row sets in shared memory, so a wider right-hand side
+# is walked in tiles of this many columns.
+RHS_TILE = 128
+
 
 def chol_pallas_supported(P: int, c: int, k: int, r: int = 1) -> bool:
-    """Whether the kernels take blocks of k (at most ``MAX_CHOL_BLOCK``)."""
+    """Whether the kernels take blocks of k (at most ``MAX_CHOL_BLOCK``;
+    any P, c and r)."""
     return k <= MAX_CHOL_BLOCK
 
 
@@ -103,22 +109,24 @@ def chol_thomas_factor(D: Tensor, Lp: Tensor) -> Tensor:
     """Cholesky factors (P, c, k, k) of the Schur-complemented diagonal
     blocks of P block-tridiagonal SPD systems: D (P, c, k, k) and the
     shifted couplings Lp (P, c, k, k), Lp[:, i] = L[:, i-1], Lp[:, 0] = 0;
-    float32, contiguous.
+    float32, contiguous, on one device.
 
     Kernel ``chol_thomas_factor`` in ``kernels/csrc/chol_thomas.cu``.
     Replaces ``sleqp_tpu/ops/pallas_chol_tridiag.py::_factor_kernel``
     (pallas_call at :278).  One thread block per system walks its c stages
     with at most three k x k tiles in shared memory (the previous factor,
-    W, C_i); the factors go to a fresh tensor.  Work per stage ~4.33 k^3
-    float32 operations (2 k^3 in the two triangular solves, 2 k^3 in
-    W L_i^T, k^3/3 in the Cholesky).  At the main path's (1, 160, 64):
-    0.18 GFLOP against 7.9 MB moved, so the whole card is bound at 2.7 us
-    by operations (67 TFLOP/s), but one chain runs on one SM, whose bound
-    is 0.36 ms (67/132 TFLOP/s); the stages' 3k barriers and their row-wise
+    W, C_i); the factors go to a fresh tensor.  A stage needs at least
+    ~2.33 k^3 float32 operations (Z = L_i G_{i-1}^-T by one triangular
+    solve, k^3; the symmetric Z Z^T, k^3; the Cholesky, k^3/3); the kernel
+    does 4.33 k^3 (two triangular solves and the full W L_i^T).  At the main
+    path's (1, 160, 64): 98 MFLOP against 7.9 MB moved, so the whole card
+    is bound at 2.3 us by bytes, but one chain runs on one SM, whose bound
+    is 0.19 ms (67/132 TFLOP/s); the stages' 3k barriers and their row-wise
     substitutions set its time.
     """
     _build.check_operand(D, 4, "chol_thomas_factor", "(P, c, k, k) blocks")
     _build.check_operand(Lp, 4, "chol_thomas_factor", "(P, c, k, k) couplings")
+    _build.check_chain("chol_thomas_factor", {"D": D, "Lp": Lp})
     if not _build.runs_kernel(D, "chol_thomas_factor"):
         return chol_thomas_factor_plain(D, Lp)
     P, c, k, _ = D.shape
@@ -162,25 +170,36 @@ def chol_thomas_solve_plain(chols: Tensor, Lp: Tensor, B: Tensor) -> Tensor:
 
 def chol_thomas_solve(chols: Tensor, Lp: Tensor, B: Tensor) -> Tensor:
     """Solve P systems against factors from ``chol_thomas_factor``:
-    B (P, c, k, r) -> X (P, c, k, r); float32, contiguous.
+    B (P, c, k, r) -> X (P, c, k, r); float32, contiguous, on one device.
 
     Kernel ``chol_thomas_solve`` in ``kernels/csrc/chol_thomas.cu``.
     Replaces ``sleqp_tpu/ops/pallas_chol_tridiag.py::_solve_kernel``
     (pallas_call at :302).  One thread block per system; the carry and the
     stage's right-hand sides live in shared memory as r rows of k, the
-    factors and couplings are read from device memory in both sweeps.  Work
+    factors and couplings are read from device memory in both sweeps.  One
+    launch per ``RHS_TILE`` columns of B (128 KB of rows at k = 128).  Work
     ~8 k^2 r operations per stage.  At the main path's (1, 160, 64, 1): it
     must move 5.3 MB (factors and couplings once, b and x), 1.6 us at
     3.35 TB/s, against 5.2 MFLOP, 10 us on one SM; a single right-hand side
     is one thread's substitution chain, which sets its time.
     """
-    _build.check_operand(chols, 4, "chol_thomas_solve", "(P, c, k, k) factors")
-    _build.check_operand(Lp, 4, "chol_thomas_solve", "(P, c, k, k) couplings")
-    _build.check_operand(B, 4, "chol_thomas_solve", "(P, c, k, r) right-hand sides")
-    if not _build.runs_kernel(B, "chol_thomas_solve"):
+    name = "chol_thomas_solve"
+    _build.check_operand(chols, 4, name, "(P, c, k, k) factors")
+    _build.check_operand(Lp, 4, name, "(P, c, k, k) couplings")
+    _build.check_operand(B, 4, name, "(P, c, k, r) right-hand sides")
+    _build.check_chain(name, {"chols": chols, "Lp": Lp}, B)
+    tiles = _build.rhs_tiles(B, RHS_TILE)
+    return _build.join_tiles([_chol_thomas_solve_tile(chols, Lp, t) for t in tiles])
+
+
+def _chol_thomas_solve_tile(chols: Tensor, Lp: Tensor, B: Tensor) -> Tensor:
+    """``chol_thomas_solve`` on at most ``RHS_TILE`` right-hand sides: the
+    plain version for a CPU tensor, else one launch of the kernel."""
+    name = "chol_thomas_solve"
+    if not _build.runs_kernel(B, name):
         return chol_thomas_solve_plain(chols, Lp, B)
     P, c, k, r = B.shape
-    _check_k(k, "chol_thomas_solve")
+    _check_k(k, name)
     X = torch.empty_like(B)
     if B.numel() == 0:
         return X
@@ -190,8 +209,8 @@ def chol_thomas_solve(chols: Tensor, Lp: Tensor, B: Tensor) -> Tensor:
             _build.ptr(chols), _build.ptr(Lp), _build.ptr(B), _build.ptr(X),
             P, c, k, r, _build.stream_handle(B),
         )
-    _build.check_launch(code, "chol_thomas_solve")
-    LAUNCHES["chol_thomas_solve"] += 1
+    _build.check_launch(code, name)
+    LAUNCHES[name] += 1
     return X
 
 

@@ -47,8 +47,14 @@ MAX_PALLAS_BLOCK = 64
 BACKENDS = ("auto", "chol_pallas", "spike32", "scan32", "cr32")
 
 
+# Right-hand sides one launch of a sweep takes (thomas.cu's kMaxR): the
+# kernels keep k x r carries in shared memory, so a wider right-hand side is
+# walked in tiles of this many columns.
+RHS_TILE = 128
+
+
 def pallas_supported(N: int, k: int, r: int = 1) -> bool:
-    """Whether the streaming kernels take blocks of k."""
+    """Whether the streaming kernels take blocks of k (any N and r)."""
     return k <= MAX_PALLAS_BLOCK
 
 
@@ -95,26 +101,41 @@ def thomas_fwd_plain(D: Tensor, Lp: Tensor, b: Tensor, factor: bool):
 def thomas_fwd(D: Tensor, Lp: Tensor, b: Tensor, factor: bool):
     """Forward block-Thomas sweep over D (N, k, k), the shifted couplings
     Lp (N, k, k) (Lp[i] = L[i-1], Lp[0] = 0) and b (N, k, r); float32,
-    contiguous.  Returns (y, M): with ``factor`` M holds the block inverses
-    C_i^-1; without it D must hold them and M is None.
+    contiguous, on one device.  Returns (y, M): with ``factor`` M holds the
+    block inverses C_i^-1; without it D must hold them and M is None.
 
     Kernel ``thomas_fwd`` in ``kernels/csrc/thomas.cu``.  Replaces
     ``sleqp_tpu/ops/pallas_tridiag.py::_fwd_stream_kernel`` (pallas_call at
     :258), both modes.  The recursion is one chain, so it is one thread
     block that walks the N stages with the k x 2k tableau, whose right half
     carries M_{i-1}, L_{i-1}, M_{i-1} L_{i-1}^T and y_{i-1} in shared memory
-    (66 KB at k = 64).  With factor each stage does ~8 k^3 float32
-    operations (two k^3 products and 4 k^3 in the sweeps).  At the main
-    path's (160, 64, 1): 0.34 GFLOP against 7.9 MB moved, so the whole card
-    is bound at 5 us by operations, but one chain runs on one SM, whose
-    bound is 0.66 ms (67/132 TFLOP/s); the 2k barriers of the sweeps per
-    stage set its time.  Without factor it is 4 k^2 r operations per stage
-    and bound by the 5.3 MB it reads.
+    (66 KB at k = 64, plus 512 bytes per right-hand side).  A b of more
+    than ``RHS_TILE`` columns is walked in tiles, one launch each: the first
+    factors, the others substitute against its inverses.  With factor a
+    stage needs at least ~3 k^3 float32 operations (the coupling update
+    through the previous Cholesky factor, 2 k^3, and an SPD inverse, k^3).
+    At the main path's (160, 64, 1): 0.13 GFLOP against 7.9 MB moved, so
+    the whole card is bound at 2.4 us by bytes, but one chain runs on one
+    SM, whose bound is 0.25 ms (67/132 TFLOP/s); the 2k barriers of the
+    sweeps per stage set its time.  Without factor it is 4 k^2 r operations
+    per stage and bound by the 5.3 MB it reads.
     """
     name = "thomas_fwd"
     _build.check_operand(D, 3, name, "(N, k, k) blocks")
     _build.check_operand(Lp, 3, name, "(N, k, k) couplings")
     _build.check_operand(b, 3, name, "(N, k, r) right-hand sides")
+    _build.check_chain(name, {"D": D, "Lp": Lp}, b)
+    first, *rest = _build.rhs_tiles(b, RHS_TILE)
+    y, M = _thomas_fwd_tile(D, Lp, first, factor)
+    inverses = M if factor else D
+    ys = [y] + [_thomas_fwd_tile(inverses, Lp, t, False)[0] for t in rest]
+    return _build.join_tiles(ys), M
+
+
+def _thomas_fwd_tile(D: Tensor, Lp: Tensor, b: Tensor, factor: bool):
+    """``thomas_fwd`` on at most ``RHS_TILE`` right-hand sides: the plain
+    version for a CPU tensor, else one launch of the kernel."""
+    name = "thomas_fwd"
     if not _build.runs_kernel(b, name):
         return thomas_fwd_plain(D, Lp, b, factor)
     N, k, r = b.shape
@@ -155,20 +176,29 @@ def thomas_bwd_plain(M: Tensor, Lp: Tensor, y: Tensor) -> Tensor:
 def thomas_bwd(M: Tensor, Lp: Tensor, y: Tensor) -> Tensor:
     """Backward block-Thomas sweep: M (N, k, k) block inverses, Lp
     (N, k, k) shifted couplings as for ``thomas_fwd``, y (N, k, r) from the
-    forward sweep; float32, contiguous.  Returns x (N, k, r).
+    forward sweep; float32, contiguous, on one device.  Returns x (N, k, r).
 
     Kernel ``thomas_bwd`` in ``kernels/csrc/thomas.cu``.  Replaces
     ``sleqp_tpu/ops/pallas_tridiag.py::_bwd_stream_kernel`` (pallas_call at
     :287).  One thread block walks the chain back to front with x_{i+1} in
     shared memory and reads L_i as Lp[i+1] (the reference builds a second
-    shifted copy Ls).  4 k^2 r operations per stage; at the main path's
-    (160, 64, 1) it must read 5.3 MB, 1.6 us at 3.35 TB/s, against
-    2.6 MFLOP, 5 us on one SM.
+    shifted copy Ls); one launch per ``RHS_TILE`` columns of y.  4 k^2 r
+    operations per stage; at the main path's (160, 64, 1) it must read
+    5.3 MB, 1.6 us at 3.35 TB/s, against 2.6 MFLOP, 5 us on one SM.
     """
     name = "thomas_bwd"
     _build.check_operand(M, 3, name, "(N, k, k) inverses")
     _build.check_operand(Lp, 3, name, "(N, k, k) couplings")
     _build.check_operand(y, 3, name, "(N, k, r) right-hand sides")
+    _build.check_chain(name, {"M": M, "Lp": Lp}, y)
+    tiles = _build.rhs_tiles(y, RHS_TILE)
+    return _build.join_tiles([_thomas_bwd_tile(M, Lp, t) for t in tiles])
+
+
+def _thomas_bwd_tile(M: Tensor, Lp: Tensor, y: Tensor) -> Tensor:
+    """``thomas_bwd`` on at most ``RHS_TILE`` right-hand sides: the plain
+    version for a CPU tensor, else one launch of the kernel."""
+    name = "thomas_bwd"
     if not _build.runs_kernel(y, name):
         return thomas_bwd_plain(M, Lp, y)
     N, k, r = y.shape

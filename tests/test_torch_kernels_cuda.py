@@ -152,3 +152,47 @@ def test_thomas_kernels_reject_what_they_cannot_take(cuda):
     D, Lp, b = _tridiag((3,), 8, 2, seed=0, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         pt.thomas_bwd(D, Lp, b.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_wide_rhs_is_walked_in_tiles_on_the_card(cuda):
+    """r beyond what one launch keeps in shared memory, at the largest
+    blocks: one launch per tile of RHS_TILE columns, and the plain
+    versions' result."""
+    from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc
+    from sleqp_tpu_torch.ops import pallas_tridiag as pt
+
+    r = 2 * pt.RHS_TILE + 44  # 300: above the shared memory of one launch
+    D, Lp, b = _tridiag((6,), pt.MAX_PALLAS_BLOCK, r, seed=7, device=cuda)
+    before = dict(pt.LAUNCHES)
+    y, M = pt.thomas_fwd(D, Lp, b, factor=True)
+    x = pt.thomas_bwd(M, Lp, y)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES == {"thomas_fwd": before["thomas_fwd"] + 3, "thomas_bwd": before["thomas_bwd"] + 3}
+    y_p, M_p = pt.thomas_fwd_plain(D, Lp, b, True)
+    assert _rel(M, M_p) <= 1e-4
+    assert _rel(y, y_p) <= 1e-4
+    assert _rel(x, pt.thomas_bwd_plain(M_p, Lp, y_p)) <= 1e-4
+
+    r = 2 * pc.RHS_TILE + 44
+    D, Lp, b = _tridiag((2, 4), pc.MAX_CHOL_BLOCK, r, seed=8, device=cuda)
+    before = pc.LAUNCHES["chol_thomas_solve"]
+    chols = pc.chol_thomas_factor(D, Lp)
+    x = pc.chol_thomas_solve(chols, Lp, b)
+    torch.cuda.synchronize()
+    assert pc.LAUNCHES["chol_thomas_solve"] == before + 3
+    assert _rel(x, pc.chol_thomas_solve_plain(chols, Lp, b)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_thomas_kernels_reject_operands_on_two_devices(cuda):
+    from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc
+    from sleqp_tpu_torch.ops import pallas_tridiag as pt
+
+    D, Lp, b = _tridiag((3,), 8, 2, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="is on"):
+        pt.thomas_fwd(D.cpu(), Lp, b, factor=True)
+    with pytest.raises(ValueError, match="is on"):
+        pt.thomas_bwd(D, Lp.cpu(), b)
+    with pytest.raises(ValueError, match="is on"):
+        pc.chol_thomas_solve(D[None], Lp[None], b[None].cpu())

@@ -275,3 +275,59 @@ def test_wrappers_reject_other_devices_and_dtypes():
     with pytest.raises(TypeError):
         pt.thomas_bwd(D64[0], D64[0], torch.ones((2, 4, 1), dtype=torch.float64))
 
+
+
+def _blocks(*shape):
+    return torch.zeros(shape, dtype=torch.float32)
+
+
+# Operands that do not agree: each would hand the kernel pointers to
+# allocations smaller than the sizes it takes from another operand.
+N_, K_, R_ = 4, 3, 2
+MISMATCHED = {
+    "thomas_fwd, L in place of Lp": lambda: pt.thomas_fwd(
+        _blocks(N_, K_, K_), _blocks(N_ - 1, K_, K_), _blocks(N_, K_, R_), factor=True),
+    "thomas_fwd, b of another k": lambda: pt.thomas_fwd(
+        _blocks(N_, K_, K_), _blocks(N_, K_, K_), _blocks(N_, K_ + 1, R_), factor=False),
+    "thomas_fwd, operands on two devices": lambda: pt.thomas_fwd(
+        _blocks(N_, K_, K_), _blocks(N_, K_, K_).to("meta"), _blocks(N_, K_, R_), factor=True),
+    "thomas_bwd, y of another N": lambda: pt.thomas_bwd(
+        _blocks(N_, K_, K_), _blocks(N_, K_, K_), _blocks(N_ + 1, K_, R_)),
+    "thomas_bwd, blocks not square": lambda: pt.thomas_bwd(
+        _blocks(N_, K_, K_ + 1), _blocks(N_, K_, K_ + 1), _blocks(N_, K_, R_)),
+    "chol_thomas_factor, L in place of Lp": lambda: pc.chol_thomas_factor(
+        _blocks(2, N_, K_, K_), _blocks(2, N_ - 1, K_, K_)),
+    "chol_thomas_factor, operands on two devices": lambda: pc.chol_thomas_factor(
+        _blocks(2, N_, K_, K_), _blocks(2, N_, K_, K_).to("meta")),
+    "chol_thomas_solve, B of another c": lambda: pc.chol_thomas_solve(
+        _blocks(2, N_, K_, K_), _blocks(2, N_, K_, K_), _blocks(2, N_ - 1, K_, R_)),
+    "chol_thomas_solve, Lp of another P": lambda: pc.chol_thomas_solve(
+        _blocks(2, N_, K_, K_), _blocks(1, N_, K_, K_), _blocks(2, N_, K_, R_)),
+}
+
+
+@pytest.mark.parametrize("case", MISMATCHED)
+def test_wrappers_reject_mismatched_operands(case):
+    with pytest.raises(ValueError, match="expected|is on|not square"):
+        MISMATCHED[case]()
+
+
+def test_wide_rhs_is_walked_in_tiles():
+    """More right-hand sides than one launch takes: the wrappers walk them
+    in tiles (the first factors, the rest reuse its inverses) and give the
+    untiled plain versions' result, to float32 rounding (the products'
+    sums may be ordered differently at another width)."""
+    r = 2 * pt.RHS_TILE + 7
+    D, L, _ = spd_block_tridiag(5, 3, seed=4)
+    b = np.random.default_rng(5).standard_normal((5, 3, r))
+    D, b = _f32(D, b)
+    Lp = pt._pad_sub(torch.as_tensor(L, dtype=torch.float32), 5, 3)
+    y, M = pt.thomas_fwd(D, Lp, b, factor=True)
+    y_p, M_p = pt.thomas_fwd_plain(D, Lp, b, True)
+    assert torch.equal(M, M_p)
+    assert _rel(y, y_p) <= SAME_F32
+    assert _rel(pt.thomas_fwd(M, Lp, b, factor=False)[0], y_p) <= SAME_F32
+    assert _rel(pt.thomas_bwd(M, Lp, y), pt.thomas_bwd_plain(M_p, Lp, y_p)) <= SAME_F32
+    D4, Lp4, b4 = D[None], Lp[None], b[None]
+    ch = pc.chol_thomas_factor(D4, Lp4)
+    assert _rel(pc.chol_thomas_solve(ch, Lp4, b4), pc.chol_thomas_solve_plain(ch, Lp4, b4)) <= SAME_F32
