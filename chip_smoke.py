@@ -97,7 +97,8 @@ COUNTS = (cr.LAUNCHES, pt.LAUNCHES, pc.LAUNCHES)
 TRIDIAG_RTOL = 1e-4
 THOMAS_SHAPES = [(160, 64, 1), (13, 3, 3), (1, 4, 1)]  # (N, k, r)
 THOMAS_LONG = (1560, 32, 1)  # the OCP's dual Schur complement, timed only
-CHOL_SHAPES = [(1, 160, 64, 1), (4, 40, 64, 8), (2, 8, 128, 1)]  # (P, c, k, r)
+# (P, c, k, r); the fourth fills warps raggedly (k, r not multiples of 32)
+CHOL_SHAPES = [(1, 160, 64, 1), (4, 40, 64, 8), (2, 8, 128, 1), (3, 7, 17, 33)]
 TRIDIAG_KERNELS = {
     "thomas_fwd": ("sleqp_tpu_torch/kernels/csrc/thomas.cu", "sleqp_tpu/ops/pallas_tridiag.py:115"),
     "thomas_bwd": ("sleqp_tpu_torch/kernels/csrc/thomas.cu", "sleqp_tpu/ops/pallas_tridiag.py:155"),

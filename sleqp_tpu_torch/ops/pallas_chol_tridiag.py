@@ -10,8 +10,9 @@ explicit inverses of ``pallas_tridiag``.
 The two kernels (``kernels/csrc/chol_thomas.cu``) sit behind
 ``chol_thomas_factor`` (B5) and ``chol_thomas_solve`` (B6).  Each has its
 plain PyTorch version beside it, which runs the same arithmetic (a
-right-looking Cholesky, row-wise triangular solves) and is what the wrapper
-takes for a tensor on the CPU.  For a CUDA tensor the wrapper launches the
+right-looking Cholesky; column-oriented triangular solves that multiply by
+the reciprocal diagonal; C_i = D_i - Z Z^T with Z = L_i G_{i-1}^-T) and is
+what the wrapper takes for a tensor on the CPU.  For a CUDA tensor the wrapper launches the
 kernel or raises.  ``LAUNCHES`` counts kernel launches, and nothing else.
 The reference's transposed right-hand-side layout and its padding of r to
 8 were workarounds for the TPU's compiler; the public shapes are kept.
@@ -29,12 +30,13 @@ Tensor = torch.Tensor
 # Kernel launches since the counts were last cleared, by kernel name.
 LAUNCHES = {"chol_thomas_factor": 0, "chol_thomas_solve": 0}
 
-# the largest block the kernels take: three 64 KB tiles of shared memory
+# the largest block the kernels take: the factorization's three tiles of
+# 128 x 132 floats fill 204 KB of a block's 227 KB of shared memory
 MAX_CHOL_BLOCK = 128
 
 # Right-hand sides one launch of the solve takes (chol_thomas.cu's kMaxR):
-# it keeps two r x k row sets in shared memory, so a wider right-hand side
-# is walked in tiles of this many columns.
+# their carry and a stage's k x r right-hand sides sit in shared memory, so
+# a wider right-hand side is walked in tiles of this many columns.
 RHS_TILE = 128
 
 
@@ -70,19 +72,37 @@ def _cholesky_right_looking(C: Tensor) -> Tensor:
     return torch.tril(A)
 
 
-def _cho_solve_rows(G: Tensor, Y: Tensor) -> Tensor:
-    """Rows of Y (P, n, k) times C^-1 for C = G G^T, G (P, k, k) lower:
-    z G^T = y by forward substitution, then x G = z by backward
-    substitution (``_cho_solve_t`` of the reference)."""
+def _forward_rows(G: Tensor, Y: Tensor) -> Tensor:
+    """Rows y of Y (P, n, k) become z with z G^T = y, for G (P, k, k)
+    lower triangular: column by column, z_j = y_j * (1 / G_jj), then every
+    later entry l of the row loses G_lj z_j, rounded once as an FMA rounds:
+    each entry takes its updates in the order the kernels apply them."""
     Y = Y.clone()
-    k = G.shape[-1]
-    for j in range(k):
-        acc = (Y[:, :, :j] * G[:, None, j, :j]).sum(-1)
-        Y[:, :, j] = (Y[:, :, j] - acc) / G[:, None, j, j]
-    for j in range(k - 1, -1, -1):
-        acc = (Y[:, :, j + 1 :] * G[:, None, j + 1 :, j]).sum(-1)
-        Y[:, :, j] = (Y[:, :, j] - acc) / G[:, None, j, j]
+    rinv = 1.0 / torch.diagonal(G, dim1=-2, dim2=-1)  # (P, k)
+    for j in range(G.shape[-1]):
+        z = Y[:, :, j] * rinv[:, None, j]
+        Y[:, :, j] = z
+        Y[:, :, j + 1 :] = fma_rank1(Y[:, :, j + 1 :], z, G[:, j + 1 :, j])
     return Y
+
+
+def _backward_rows(G: Tensor, Y: Tensor) -> Tensor:
+    """Rows z of Y (P, n, k) become x with x G = z: from the last column
+    back, x_j = z_j * (1 / G_jj), then every earlier entry l loses G_jl x_j,
+    as ``chol_thomas.cu::backward_subst`` orders it."""
+    Y = Y.clone()
+    rinv = 1.0 / torch.diagonal(G, dim1=-2, dim2=-1)
+    for j in range(G.shape[-1] - 1, -1, -1):
+        x = Y[:, :, j] * rinv[:, None, j]
+        Y[:, :, j] = x
+        Y[:, :, :j] = fma_rank1(Y[:, :, :j], x, G[:, j, :j])
+    return Y
+
+
+def _cho_solve_rows(G: Tensor, Y: Tensor) -> Tensor:
+    """Rows of Y (P, n, k) times C^-1 for C = G G^T, G (P, k, k) lower
+    (``_cho_solve_t`` of the reference, in column-oriented form)."""
+    return _backward_rows(G, _forward_rows(G, Y))
 
 
 # ---------------------------------------------------------------------------
@@ -92,15 +112,15 @@ def _cho_solve_rows(G: Tensor, Y: Tensor) -> Tensor:
 
 def chol_thomas_factor_plain(D: Tensor, Lp: Tensor) -> Tensor:
     """Plain version of ``chol_thomas_factor``: per stage,
-    W = L_i C_{i-1}^-1 (two triangular solves), C_i = D_i - W L_i^T, and its
-    right-looking Cholesky."""
+    Z = L_i G_{i-1}^-T (one triangular solve), C_i = D_i - Z Z^T, and its
+    right-looking Cholesky.  L_i C_{i-1}^-1 L_i^T = Z Z^T, as the reference
+    forms it with two solves and a full product."""
     chols = torch.empty_like(D)
     prev = _cholesky_right_looking(D[:, 0])
     chols[:, 0] = prev
     for i in range(1, D.shape[1]):
-        Li = Lp[:, i]
-        W = _cho_solve_rows(prev, Li)
-        prev = _cholesky_right_looking(D[:, i] - W @ Li.mT)
+        Z = _forward_rows(prev, Lp[:, i])
+        prev = _cholesky_right_looking(D[:, i] - Z @ Z.mT)
         chols[:, i] = prev
     return chols
 
@@ -113,16 +133,23 @@ def chol_thomas_factor(D: Tensor, Lp: Tensor) -> Tensor:
 
     Kernel ``chol_thomas_factor`` in ``kernels/csrc/chol_thomas.cu``.
     Replaces ``sleqp_tpu/ops/pallas_chol_tridiag.py::_factor_kernel``
-    (pallas_call at :278).  One thread block per system walks its c stages
-    with at most three k x k tiles in shared memory (the previous factor,
-    W, C_i); the factors go to a fresh tensor.  A stage needs at least
-    ~2.33 k^3 float32 operations (Z = L_i G_{i-1}^-T by one triangular
-    solve, k^3; the symmetric Z Z^T, k^3; the Cholesky, k^3/3); the kernel
-    does 4.33 k^3 (two triangular solves and the full W L_i^T).  At the main
-    path's (1, 160, 64): 98 MFLOP against 7.9 MB moved, so the whole card
-    is bound at 2.3 us by bytes, but one chain runs on one SM, whose bound
-    is 0.19 ms (67/132 TFLOP/s); the stages' 3k barriers and their row-wise
-    substitutions set its time.
+    (pallas_call at :278).  One thread block of 16 warps per system walks
+    its c stages and does the least arithmetic a stage needs, ~2.33 k^3
+    float32 operations: Z = L_i G_{i-1}^-T by one forward substitution (k^3;
+    blocked by 8 columns: the block forms each entry's sum over the earlier
+    columns, a thread per row solves the 8 x 8 triangle), the lower
+    triangle of C_i = D_i - Z Z^T (k^3), and a blocked right-looking
+    Cholesky (k^3/3): warp 0 factors each 16-column panel in registers with
+    shuffles, the block updates the trailing triangle.  D_{i+1} and L_{i+1}
+    are copied into shared memory (cp.async, zero-padded rows of
+    32 ceil(k/32) + 4 floats) while stage i computes: 89 KB at k = 64; from
+    k = 97 without overlap, 204 KB at k = 128.  The factors go to a fresh
+    tensor, zero above the diagonal.  At the main path's (1, 160, 64):
+    98 MFLOP against 7.9 MB moved, so the whole card is bound at 2.3 us by
+    bytes, but one chain runs on one SM, whose bound is 0.19 ms
+    (67/132 TFLOP/s); what holds it back is the panels' one-warp chain (a
+    shuffle, a reciprocal square root and two multiply-adds a column) and
+    the 26 barriers a stage.
     """
     _build.check_operand(D, 4, "chol_thomas_factor", "(P, c, k, k) blocks")
     _build.check_operand(Lp, 4, "chol_thomas_factor", "(P, c, k, k) couplings")
@@ -174,14 +201,21 @@ def chol_thomas_solve(chols: Tensor, Lp: Tensor, B: Tensor) -> Tensor:
 
     Kernel ``chol_thomas_solve`` in ``kernels/csrc/chol_thomas.cu``.
     Replaces ``sleqp_tpu/ops/pallas_chol_tridiag.py::_solve_kernel``
-    (pallas_call at :302).  One thread block per system; the carry and the
-    stage's right-hand sides live in shared memory as r rows of k, the
-    factors and couplings are read from device memory in both sweeps.  One
-    launch per ``RHS_TILE`` columns of B (128 KB of rows at k = 128).  Work
-    ~8 k^2 r operations per stage.  At the main path's (1, 160, 64, 1): it
-    must move 5.3 MB (factors and couplings once, b and x), 1.6 us at
-    3.35 TB/s, against 5.2 MFLOP, 10 us on one SM; a single right-hand side
-    is one thread's substitution chain, which sets its time.
+    (pallas_call at :302).  One thread block of 16 warps per system; a
+    warp per right-hand side, its row in registers (k/32 entries a lane),
+    the carry in shared memory, one barrier a stage.  The substitutions go
+    8 entries at a time: the warp gathers them by shuffles, every lane
+    solves their 8 x 8 diagonal block, and each lane updates its own later
+    entries.  The warps without a right-hand side copy the next stage's
+    factor, coupling and right-hand sides into shared memory (cp.async) and
+    take 1/G_jj while the current stage solves: 169 KB at k = 64, r = 128;
+    at k = 128 one stage's, 202 KB, without overlap.  One launch per
+    ``RHS_TILE`` columns of B.  Work ~8 k^2 r operations per stage.  At the
+    main path's (1, 160, 64, 1): it must move 5.3 MB (factors and couplings
+    once, b and x), 1.6 us at 3.35 TB/s, against 5.2 MFLOP, 10 us on one
+    SM; what holds it back is the warp's chain, 4k entries a stage, each
+    8 behind a round of shuffles and ~20 shared-memory loads on the same
+    pipe.
     """
     name = "chol_thomas_solve"
     _build.check_operand(chols, 4, name, "(P, c, k, k) factors")

@@ -112,8 +112,11 @@ def thomas_fwd(D: Tensor, Lp: Tensor, b: Tensor, factor: bool):
     (66 KB at k = 64, plus 512 bytes per right-hand side).  A b of more
     than ``RHS_TILE`` columns is walked in tiles, one launch each: the first
     factors, the others substitute against its inverses.  With factor a
-    stage needs at least ~3 k^3 float32 operations (the coupling update
-    through the previous Cholesky factor, 2 k^3, and an SPD inverse, k^3).
+    stage needs at least ~3 k^3 float32 operations: the coupling update
+    L_{i-1} M_{i-1} L_{i-1}^T, 2 k^3 at the least (a triangular product with
+    a Cholesky factor of M_{i-1}, then a symmetric product; the kernel forms
+    it from the explicit inverse as two full products, 4 k^3), and an SPD
+    inverse, k^3.
     At the main path's (160, 64, 1): 0.13 GFLOP against 7.9 MB moved, so
     the whole card is bound at 2.4 us by bytes, but one chain runs on one
     SM, whose bound is 0.25 ms (67/132 TFLOP/s); the 2k barriers of the

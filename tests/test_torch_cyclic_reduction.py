@@ -85,10 +85,10 @@ def test_cr_resolve_reuses_factor_for_multiple_rhs():
     assert np.abs(x.double().numpy() - ref).max() / np.abs(ref).max() < 5e-6
 
 
-def test_cr_factor_tail_needs_unported_kernels():
+def test_cr_factor_tail_matches_scan():
     """The tail of cr_factor(tail_n > 1) goes through the streaming Thomas
-    kernels (B3/B4, ported since): the factorization keeps their inverses
-    of the last 4 blocks, and cr_resolve solves through them."""
+    kernels (B3/B4): the factorization keeps their inverses of the last 4
+    blocks, and cr_resolve solves through them to the float64 scan's x."""
     D, L, b = spd_block_tridiag(8, 2, seed=0)
     fact = cr.cr_factor(torch.as_tensor(D), torch.as_tensor(L), tail_n=4)
     assert fact["root"] is None and fact["tail"]["Minv"].shape == (4, 2, 2)

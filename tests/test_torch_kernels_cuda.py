@@ -121,8 +121,17 @@ def test_thomas_kernels_match_plain_versions(cuda, N, k, r):
     assert _rel(y2, pt.thomas_fwd_plain(M_p, Lp, b, False)[0]) <= 1e-4
 
 
+# The main path's shapes, then blocks and right-hand sides that fill a
+# warp's 32 lanes raggedly (k, r not multiples of 32), up to the largest
+# staged tile (k = 128, where a stage's copies no longer overlap the one
+# before) and the most right-hand sides one launch takes (r = 128).
+CHOL_CASES = [(1, 160, 64, 1), (4, 40, 64, 8), (2, 8, 128, 1)] + [
+    (2, 5, k, r) for k in (3, 17, 33, 64, 128) for r in (1, 5, 33, 128)
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,c,k,r", [(1, 160, 64, 1), (4, 40, 64, 8), (2, 8, 128, 1)])
+@pytest.mark.parametrize("P,c,k,r", CHOL_CASES)
 def test_chol_thomas_kernels_match_plain_versions(cuda, P, c, k, r):
     from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc
 

@@ -135,12 +135,13 @@ def test_chol_pallas_backend_matches_f64():
     np.testing.assert_allclose(x.numpy(), np.asarray(x_j), atol=1e-7)
 
 
-def test_batched_thomas_matches_jax():
+@pytest.mark.parametrize("P,c,k,r", [(3, 5, 8, 4), (1, 40, 64, 2)])
+def test_batched_thomas_matches_jax(P, c, k, r):
     """tests/test_pallas_tridiag.py::test_batched_thomas_pallas_vs_xla:
     the port's batched Cholesky Thomas against the reference's Pallas
     kernels (interpret mode) and its vmapped scan, for one and several
-    right-hand sides."""
-    P, c, k, r = 3, 5, 8, 4
+    right-hand sides; the second case at the block size of the
+    structured-KKT path (k = 64)."""
     rng = np.random.default_rng(0)
     M = rng.standard_normal((P, c, k, k))
     D = (np.einsum("pcij,pckj->pcik", M, M) + 2 * k * np.eye(k)).astype(np.float32)
