@@ -22,8 +22,9 @@ run from a checkout of the repository, on a machine with a CUDA device and
 5. ``bench.py``'s structured-KKT system (N = 160 blocks of k = 64,
    n = 10 240) through ``block_tridiag_solve_mp`` on four backends, the
    streaming Thomas factor-solve and resolve, and cyclic reduction with a
-   streaming tail, against the float64 block-Thomas solve; and the dense
-   float64 Cholesky solve of the assembled system as the library yardstick;
+   streaming tail (each timed in ms per solve), against the float64
+   block-Thomas solve; and the dense float64 Cholesky solve of the
+   assembled system as the library yardstick;
 6. the float64 OCP solve with ``tridiag_backend="pallas"`` (float32 cyclic
    reduction with float64 refinement) on the problem of phase 3;
 7. one JSON line describing each kernel, then the result line.
@@ -95,7 +96,9 @@ COUNTS = (cr.LAUNCHES, pt.LAUNCHES, pc.LAUNCHES)
 # arithmetic summed in another order (the reference holds its float32
 # Thomas kernel to 2e-4 of the float64 scan, tests/test_pallas_tridiag.py:41).
 TRIDIAG_RTOL = 1e-4
-THOMAS_SHAPES = [(160, 64, 1), (13, 3, 3), (1, 4, 1)]  # (N, k, r)
+# (N, k, r): the structured-KKT path's shape, ragged blocks of both padded
+# widths (32 and 64), and the most right-hand sides one launch takes
+THOMAS_SHAPES = [(160, 64, 1), (13, 3, 3), (1, 4, 1), (7, 33, 5), (5, 64, 128)]
 THOMAS_LONG = (1560, 32, 1)  # the OCP's dual Schur complement, timed only
 # (P, c, k, r); the fourth fills warps raggedly (k, r not multiples of 32)
 CHOL_SHAPES = [(1, 160, 64, 1), (4, 40, 64, 8), (2, 8, 128, 1), (3, 7, 17, 33)]
@@ -392,8 +395,12 @@ def main():
         rels = {key: rel_max(K, P) for key, (K, P) in pairs.items()}
         abs_fwd = max(float((K - P).abs().max()) for key, (K, P) in pairs.items() if key != "x")
         abs_bwd = float((x - x_p).abs().max())
-        line = (f"thomas_fwd/bwd ({N},{k},{r}): kernel-plain max abs fwd {abs_fwd:.3e} "
-                f"bwd {abs_bwd:.3e}; rel " + ", ".join(f"{key} {v:.3e}" for key, v in rels.items()))
+        # the kernel's Gauss-Jordan repeats the plain version's arithmetic
+        # entry by entry, so M differs only through the coupling products' sums
+        abs_m = float((M - M_p).abs().max())
+        line = (f"thomas_fwd/bwd ({N},{k},{r}): kernel-plain max abs M {abs_m:.3e}, fwd "
+                f"{abs_fwd:.3e}, bwd {abs_bwd:.3e}; rel "
+                + ", ".join(f"{key} {v:.3e}" for key, v in rels.items()))
         if i == 0:  # the structured-KKT path's shape: time it
             ms = time_call(lambda: pt.thomas_fwd(D, Lp, b, True), reps=5)
             plain_ms = time_call(lambda: pt.thomas_fwd_plain(D, Lp, b, True), reps=1, warm=False)
@@ -590,12 +597,19 @@ def main():
     x_fs, Minv, Lp32 = pt.block_tridiag_factor_solve_pallas(D, L, b)
     x_rs = pt.block_tridiag_resolve_pallas(Minv, Lp32, b)
     x_cr = cr.cr_resolve(cr.cr_factor(D, L, tail_n=16), b)
+    # the float32 solves on B3/B4, ms per solve (median of 5)
+    f32_ms = {
+        "factor_solve": host_ms(lambda: pt.block_tridiag_factor_solve_pallas(D, L, b)),
+        "resolve": host_ms(lambda: pt.block_tridiag_resolve_pallas(Minv, Lp32, b)),
+        "cr tail 16": host_ms(lambda: cr.cr_resolve(cr.cr_factor(D, L, tail_n=16), b)),
+    }
     torch.cuda.synchronize()
     launches_kkt = read_counts()
     errs = {name: float((xx.double() - x64).abs().max()) / x_scale
             for name, xx in (("factor_solve", x_fs), ("resolve", x_rs), ("cr tail 16", x_cr))}
     log(5, "float32 against x_f64 (max abs / max |x_f64|): "
-           + ", ".join(f"{name} {e:.3e}" for name, e in errs.items())
+           + ", ".join(f"{name} {e:.3e} ({f32_ms[name]:.3f} ms per solve)"
+                       for name, e in errs.items())
            + f"; launches {launches_kkt}")
     check(max(errs.values()) < 5e-6, f"float32 structured-KKT solves off by {errs}")
     path_kernels = ("bgj_blocked64", *TRIDIAG_KERNELS)

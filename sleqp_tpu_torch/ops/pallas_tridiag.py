@@ -107,21 +107,26 @@ def thomas_fwd(D: Tensor, Lp: Tensor, b: Tensor, factor: bool):
     Kernel ``thomas_fwd`` in ``kernels/csrc/thomas.cu``.  Replaces
     ``sleqp_tpu/ops/pallas_tridiag.py::_fwd_stream_kernel`` (pallas_call at
     :258), both modes.  The recursion is one chain, so it is one thread
-    block that walks the N stages with the k x 2k tableau, whose right half
-    carries M_{i-1}, L_{i-1}, M_{i-1} L_{i-1}^T and y_{i-1} in shared memory
-    (66 KB at k = 64, plus 512 bytes per right-hand side).  A b of more
-    than ``RHS_TILE`` columns is walked in tiles, one launch each: the first
-    factors, the others substitute against its inverses.  With factor a
-    stage needs at least ~3 k^3 float32 operations: the coupling update
-    L_{i-1} M_{i-1} L_{i-1}^T, 2 k^3 at the least (a triangular product with
-    a Cholesky factor of M_{i-1}, then a symmetric product; the kernel forms
-    it from the explicit inverse as two full products, 4 k^3), and an SPD
-    inverse, k^3.
+    block that walks the N stages: a copy warp has the copy engine (TMA)
+    bring each stage's blocks into a ring of up to four shared-memory slots
+    ahead of 256 compute threads, which form M_{i-1} L^T and C_i by
+    register-tiled FMA products and invert C_i by Gauss-Jordan in place in
+    registers (M equals ``thomas_fwd_plain``'s bit for bit where both sum
+    the products in index order), then substitute by shuffled mat-vecs.  A
+    b of more than ``RHS_TILE`` columns is walked in tiles, one launch each:
+    the first factors, the others substitute against its inverses.  With
+    factor a stage needs at least ~3 k^3 float32 operations: the coupling
+    update L_{i-1} M_{i-1} L_{i-1}^T, 2 k^3 at the least (a triangular
+    product with a Cholesky factor of M_{i-1}, then a symmetric product; the
+    kernel forms it from the explicit inverse as two full products, 4 k^3),
+    and an SPD inverse, k^3.
     At the main path's (160, 64, 1): 0.13 GFLOP against 7.9 MB moved, so
     the whole card is bound at 2.4 us by bytes, but one chain runs on one
-    SM, whose bound is 0.25 ms (67/132 TFLOP/s); the 2k barriers of the
-    sweeps per stage set its time.  Without factor it is 4 k^2 r operations
-    per stage and bound by the 5.3 MB it reads.
+    SM, whose bound is 0.25 ms (67/132 TFLOP/s); what sets its time is the
+    k sweeps of a stage, each a barrier, a division and the FMAs (~280
+    cycles on the H100 at k = 64, ``tools/thomas_probe.py``).  Without
+    factor it is 4 k^2 r operations per stage and bound by the 5.3 MB it
+    reads.
     """
     name = "thomas_fwd"
     _build.check_operand(D, 3, name, "(N, k, k) blocks")
@@ -185,9 +190,11 @@ def thomas_bwd(M: Tensor, Lp: Tensor, y: Tensor) -> Tensor:
     ``sleqp_tpu/ops/pallas_tridiag.py::_bwd_stream_kernel`` (pallas_call at
     :287).  One thread block walks the chain back to front with x_{i+1} in
     shared memory and reads L_i as Lp[i+1] (the reference builds a second
-    shifted copy Ls); one launch per ``RHS_TILE`` columns of y.  4 k^2 r
-    operations per stage; at the main path's (160, 64, 1) it must read
-    5.3 MB, 1.6 us at 3.35 TB/s, against 2.6 MFLOP, 5 us on one SM.
+    shifted copy Ls); a copy warp brings M_i and L_i ahead through the copy
+    engine, and the two mat-vecs of a stage are split over groups of lanes
+    and summed by shuffles.  One launch per ``RHS_TILE`` columns of y.
+    4 k^2 r operations per stage; at the main path's (160, 64, 1) it must
+    read 5.3 MB, 1.6 us at 3.35 TB/s, against 2.6 MFLOP, 5 us on one SM.
     """
     name = "thomas_bwd"
     _build.check_operand(M, 3, name, "(N, k, k) inverses")

@@ -102,7 +102,9 @@ def _rel(K, P):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,k,r", [(160, 64, 1), (13, 3, 3), (1, 4, 1)])
+# the structured-KKT path's shape, ragged blocks of both padded widths
+# (32 and 64), and the most right-hand sides one launch takes
+@pytest.mark.parametrize("N,k,r", [(160, 64, 1), (13, 3, 3), (1, 4, 1), (7, 33, 5), (5, 64, 128)])
 def test_thomas_kernels_match_plain_versions(cuda, N, k, r):
     from sleqp_tpu_torch.ops import pallas_tridiag as pt
 
