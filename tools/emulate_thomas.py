@@ -240,10 +240,10 @@ template <int KP> void run(const char* mode, int n, int k, int r, int nb, char**
   const size_t nm = (size_t)n * k * k, nv = (size_t)n * k * r;
   const bool bwd = !strcmp(mode, "bwd"), factor = !strcmp(mode, "fwd");
   const Layout lay = layout(KP, r, !bwd);
-  Layout run = lay;
-  run.nb = nb > 0 ? nb : lay.nb;
-  const int depth = run.nb;
-  const size_t bytes = run.bytes();
+  Layout sized = lay;
+  sized.nb = nb > 0 ? nb : lay.nb;
+  const int depth = sized.nb;
+  const size_t bytes = sized.bytes();
   auto A = readf(files[0], nm), Lp = readf(files[1], nm), v = readf(files[2], nv);
   std::vector<float> out(nv, NAN), M(nm, NAN);
   // the copy engine takes rows of 16-byte multiples, as the launchers decide
