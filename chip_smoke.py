@@ -37,6 +37,7 @@ line.  Without a CUDA device it exits with code 2 before any phase; outside
 a checkout of the repository the package import fails.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -564,13 +565,20 @@ def main():
     x64 = block_tridiag_solve(D, L, b)
     b_scale = max(float(b.abs().max()), 1.0)
     x_scale = float(x64.abs().max())
-    clear_counts()
-    for backend in KKT_BACKENDS:
-        def solve(backend=backend):
-            return pt.block_tridiag_solve_mp(D, L, b, refine_iters=2, backend=backend)
 
-        ms = host_ms(solve, reps=5)
-        x = solve()
+    def solve(backend):
+        return pt.block_tridiag_solve_mp(D, L, b, refine_iters=2, backend=backend)
+
+    # one pass of each solve between the counts; the timing repeats follow
+    clear_counts()
+    xs = {backend: solve(backend) for backend in KKT_BACKENDS}
+    x_fs, Minv, Lp32 = pt.block_tridiag_factor_solve_pallas(D, L, b)
+    x_rs = pt.block_tridiag_resolve_pallas(Minv, Lp32, b)
+    x_cr = cr.cr_resolve(cr.cr_factor(D, L, tail_n=16), b)
+    torch.cuda.synchronize()
+    launches_kkt = read_counts()
+    for backend, x in xs.items():
+        ms = host_ms(functools.partial(solve, backend), reps=5)
         resid = float((b - pt.block_tridiag_matvec(D, L, x)).abs().max()) / b_scale
         err = float((x - x64).abs().max())
         log(5, f"structured KKT n={N * k}, block_tridiag_solve_mp({backend}, refine_iters=2): "
@@ -594,17 +602,12 @@ def main():
            f"torch.cholesky_solve (yardstick): {dense_ms:.3f} ms per solve (median of 5); "
            f"relative residual {resid:.3e}; max |x - x_f64| {err:.3e}")
     check(resid <= 1e-10, f"dense yardstick: relative residual {resid:.3e} above 1e-10")
-    x_fs, Minv, Lp32 = pt.block_tridiag_factor_solve_pallas(D, L, b)
-    x_rs = pt.block_tridiag_resolve_pallas(Minv, Lp32, b)
-    x_cr = cr.cr_resolve(cr.cr_factor(D, L, tail_n=16), b)
     # the float32 solves on B3/B4, ms per solve (median of 5)
     f32_ms = {
         "factor_solve": host_ms(lambda: pt.block_tridiag_factor_solve_pallas(D, L, b)),
         "resolve": host_ms(lambda: pt.block_tridiag_resolve_pallas(Minv, Lp32, b)),
         "cr tail 16": host_ms(lambda: cr.cr_resolve(cr.cr_factor(D, L, tail_n=16), b)),
     }
-    torch.cuda.synchronize()
-    launches_kkt = read_counts()
     errs = {name: float((xx.double() - x64).abs().max()) / x_scale
             for name, xx in (("factor_solve", x_fs), ("resolve", x_rs), ("cr tail 16", x_cr))}
     log(5, "float32 against x_f64 (max abs / max |x_f64|): "

@@ -23,7 +23,7 @@ import torch
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = tuple(_HERE / "csrc" / name for name in ("bgj.cu", "thomas.cu", "chol_thomas.cu"))
-HEADERS = (_HERE / "csrc" / "gj.cuh",)
+HEADERS = tuple(_HERE / "csrc" / name for name in ("gj.cuh", "staging.cuh"))
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -64,9 +64,12 @@
 
 #include <cstdint>
 
+#ifndef KERNEL_EMULATION  // tools/emulate_thomas.py brings its own
 #include <cuda_runtime.h>
 
 #include "gj.cuh"
+#include "staging.cuh"
+#endif
 
 namespace {
 
@@ -81,22 +84,6 @@ constexpr size_t kMaxSmem = 232448;  // what one block may take on sm_90
 constexpr unsigned kFull = 0xffffffffu;
 // the reciprocal diagonal 1/G_jj of up to three factors (0 from k up)
 constexpr size_t kRinv = 3 * kMaxK * sizeof(float);
-
-// Device memory to shared memory, asynchronously: 16 bytes where both
-// ends allow it (wide), else 4.
-__device__ __forceinline__ void copy_async(float* dst, const float* src, bool wide) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (wide) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-  }
-}
-
-// Wait for this thread's copies; a barrier then shows them to the block.
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 __device__ __forceinline__ bool aligned16(const float* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
@@ -338,8 +325,7 @@ template <int NT>
 __global__ void __launch_bounds__(kThreads, 1)
 chol_thomas_factor_kernel(const float* __restrict__ D, const float* __restrict__ Lp,
                           float* __restrict__ chol, int c, int k, int nd, int nl) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* smem = reinterpret_cast<float*>(dynamic_smem());
   constexpr int kp = 32 * NT;
   const int ld = kp + 4, tile = kp * ld, kk = k * k;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
@@ -364,6 +350,7 @@ chol_thomas_factor_kernel(const float* __restrict__ D, const float* __restrict__
     if (!prefetch) issue(i);
     copy_async_wait();
     __syncthreads();
+    KERNEL_PROBE(i, 0);
     // with prefetch, slot (i+1) % 3 held stage i-2's factor, last read
     // (as the previous factor, and to write it out) in stage i-1
     if (prefetch && i + 1 < c) issue(i + 1);
@@ -416,6 +403,7 @@ chol_thomas_factor_kernel(const float* __restrict__ D, const float* __restrict__
         }
         __syncthreads();
       }
+      KERNEL_PROBE(i, 1);
       // C_i = D_i - Z Z^T on the lower triangle: rows a0 + nw g of this
       // warp, lane per column b
       for (int a0 = warp; a0 < k; a0 += nw * kProdRows) {
@@ -458,7 +446,9 @@ chol_thomas_factor_kernel(const float* __restrict__ D, const float* __restrict__
       }
       __syncthreads();
     }
+    KERNEL_PROBE(i, 2);
     cholesky_blocked<NT>(C, ld, k, lane, warp);
+    KERNEL_PROBE(i, 3);
     // write G_i out, zero its upper triangle in C and keep 1/G_jj: the
     // next stage substitutes against it
     float* out = chol + base + static_cast<size_t>(i) * kk;
@@ -470,6 +460,7 @@ chol_thomas_factor_kernel(const float* __restrict__ D, const float* __restrict__
         if (b == a) Rs[(i % nd) * kMaxK + a] = 1.0f / v;
       }
     }
+    KERNEL_PROBE(i, 4);
   }
 }
 
@@ -478,8 +469,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 chol_thomas_solve_kernel(const float* __restrict__ chol, const float* __restrict__ Lp,
                          const float* __restrict__ b, float* __restrict__ x, int c,
                          int k, int r, int nbuf) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* smem = reinterpret_cast<float*>(dynamic_smem());
   constexpr int kp = 32 * NT;
   const int ld = kp + 4, tile = kp * ld, kk = k * k, kr = k * r;
   // a slot: factor, coupling and, with two slots, the right-hand sides
@@ -522,10 +512,13 @@ chol_thomas_solve_kernel(const float* __restrict__ chol, const float* __restrict
   for (int n = 0; n < steps; ++n) {
     if (nbuf == 1) issue(n);
     copy_async_wait();
+    KERNEL_PROBE(n, 10);
     __syncthreads();
+    KERNEL_PROBE(n, 11);
     // the other slot was last read in step n-1, before the barrier
     if (nbuf == 2 && n + 1 < steps) issue(n + 1);
     const int sl = nbuf == 2 ? n & 1 : 0;
+    KERNEL_PROBE(n, 12);
     const float* G = smem + sl * slot;
     const float* L = G + tile;
     const float* rinv = Rs + sl * kMaxK;
@@ -586,8 +579,11 @@ chol_thomas_solve_kernel(const float* __restrict__ chol, const float* __restrict
 #pragma unroll
         for (int t = 0; t < NT; ++t) y[t] = (acc[t].x + acc[t].y) + (acc[t].z + acc[t].w);
       }
+      KERNEL_PROBE(n, 13);
       forward_subst<NT>(y, G, ld, lane, rinv);
+      KERNEL_PROBE(n, 14);
       backward_subst<NT>(y, G, ld, lane, rinv);
+      KERNEL_PROBE(n, 15);
       __syncwarp();  // every lane has read the carry
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
@@ -600,9 +596,26 @@ chol_thomas_solve_kernel(const float* __restrict__ chol, const float* __restrict
       }
       __syncwarp();  // the carry is whole before the next stage reads it
     }
+    KERNEL_PROBE(n, 16);
     if (nbuf == 1) __syncthreads();  // every warp is done with the slot
   }
 }
+
+// Floats of the solve's shared memory before kRinv: nbuf slots and the
+// carry (r rows of kp).
+size_t solve_floats(int kp, int k, int r, int nbuf) {
+  const size_t tile = static_cast<size_t>(kp) * (kp + 4);
+  const size_t kr = static_cast<size_t>(k) * r;
+  const size_t slot = 2 * tile + (nbuf == 2 ? kr + (-kr & 3) : 0);
+  return nbuf * slot + static_cast<size_t>(r) * kp;
+}
+
+}  // namespace
+
+// The launchers: host code, which the CPU emulation of the kernels
+// (tools/emulate_thomas.py) leaves out.
+#ifndef KERNEL_EMULATION
+namespace {
 
 template <int NT>
 int factor_launch(const float* D, const float* Lp, float* chol, int p, int c, int k,
@@ -616,15 +629,6 @@ int factor_launch(const float* D, const float* Lp, float* chol, int p, int c, in
   if (err != 0) return err;
   chol_thomas_factor_kernel<NT><<<p, kThreads, smem, stream>>>(D, Lp, chol, c, k, nd, nl);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Floats of the solve's shared memory before kRinv: nbuf slots and the
-// carry (r rows of kp).
-size_t solve_floats(int kp, int k, int r, int nbuf) {
-  const size_t tile = static_cast<size_t>(kp) * (kp + 4);
-  const size_t kr = static_cast<size_t>(k) * r;
-  const size_t slot = 2 * tile + (nbuf == 2 ? kr + (-kr & 3) : 0);
-  return nbuf * slot + static_cast<size_t>(r) * kp;
 }
 
 template <int NT>
@@ -671,3 +675,4 @@ int chol_thomas_solve_launch(const float* chol, const float* Lp,
 }
 
 }  // extern "C"
+#endif  // KERNEL_EMULATION

@@ -50,10 +50,13 @@
 
 #include <cstdint>
 
+#ifndef KERNEL_EMULATION  // tools/emulate_thomas.py brings its own
 #include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "gj.cuh"
+#include "staging.cuh"
+#endif
 
 namespace {
 
@@ -67,99 +70,11 @@ constexpr size_t kMaxSmem = 232448;     // what one block may take on sm_90
 constexpr size_t kAlign = 1024;         // the swizzled boxes' alignment
 constexpr unsigned kFull = 0xffffffffu;
 
-// One float from device memory to shared memory, asynchronously.
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-// Wait for this thread's cp.async copies.
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// An mbarrier that completes a phase when one thread has arrived and the
-// bytes it announced have landed (the copy engine reports to it).
-__device__ __forceinline__ void copy_async_bar_init(uint64_t* bar) {
-  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Arrive on bar, announcing `bytes` of copies (0: a plain arrival).
-__device__ __forceinline__ void copy_async_bar_expect(uint64_t* bar, unsigned bytes) {
-  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
-               : "memory");
-}
-
-// Arrive on bar.
-__device__ __forceinline__ void copy_async_bar_arrive(uint64_t* bar) {
-  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(b) : "memory");
-}
-
-// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory
-// to shared memory by the copy engine, reported to bar.
-__device__ __forceinline__ void copy_async_bulk(float* dst, const float* src, unsigned bytes,
-                                                uint64_t* bar) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(d), "l"(src), "r"(bytes), "r"(b) : "memory");
-}
-
-// The box of map at (column c0, row r0) into dst (1024-byte aligned) by
-// the copy engine, reported to bar.
-__device__ __forceinline__ void copy_async_tile(float* dst, const CUtensorMap* map, int c0, int r0,
-                                                uint64_t* bar) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n"
-      ::"r"(d), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(b) : "memory");
-}
-
-// Wait until bar's phase of this parity has completed, suspended (not
-// polling, which would take the scheduler's issue slots and shared-memory
-// pipe from the compute warps); trap (a launch failure the wrapper
-// reports) if it has not after ~10 s, rather than hang.  One lane of a
-// warp waits (see wait_warp).
-__device__ __forceinline__ void copy_async_bar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
-  const long long start = clock64();
-  for (;;) {
-    unsigned done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(b), "r"(parity), "r"(1000000u) : "memory");
-    if (done) return;
-    if (clock64() - start > (1LL << 34)) __trap();
-  }
-}
-
 // The warp waits for bar's phase of this parity: lane 0 polls, the others
 // wait at the warp's barrier, which also shows them what the phase brought.
 __device__ __forceinline__ void wait_warp(uint64_t* bar, unsigned parity) {
   if ((threadIdx.x & 31) == 0) copy_async_bar_wait(bar, parity);
   __syncwarp();
-}
-
-// Order this thread's earlier writes to shared memory before later copies
-// of the copy engine into the same places (a barrier must follow).
-__device__ __forceinline__ void copy_async_fence() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Barrier `id` of the first `count` threads (a multiple of 32).
-__device__ __forceinline__ void sync_threads(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // A barrier of the compute threads alone (the copy warp runs on).
@@ -436,8 +351,7 @@ thomas_fwd_kernel(const __grid_constant__ CUtensorMap mapD, const __grid_constan
                   const float* __restrict__ D, const float* __restrict__ Lp,
                   const float* __restrict__ b, float* __restrict__ y,
                   float* __restrict__ M, int n, int k, int r, int factor, int nb, int tma) {
-  extern __shared__ float4 smem4[];
-  float* smem = aligned_smem(smem4);
+  float* smem = aligned_smem(dynamic_smem());
   constexpr int ld = KP + 4, tile = KP * KP, LPR = kThreads / KP;
   const int vec = r * ld;
   float* Ms = smem;                  // M_{i-1}, then M_i
@@ -483,6 +397,7 @@ thomas_fwd_kernel(const __grid_constant__ CUtensorMap mapD, const __grid_constan
     const int s = pos.slot;
     wait_warp(full + s, pos.parity);
     sync_compute();
+    KERNEL_PROBE(i, factor ? 0 : 10);
     // every compute thread is done with stage i-1: its slot may be refilled
     if (threadIdx.x == 0 && i > 0) copy_async_bar_arrive(empty + prev);
     float* Ds = ring + 2 * s * tile;
@@ -493,16 +408,21 @@ thomas_fwd_kernel(const __grid_constant__ CUtensorMap mapD, const __grid_constan
       const float t = dot(Ls, yT + q * ld);
       if (l == 0) vT[q * ld + grp] -= t;
     }
+    KERNEL_PROBE(i, (factor ? 0 : 10) + 2);
     const float* Mi = Ds;
     if (factor) {
       product<KP, true>(Ms, Ls, T1t);
       sync_compute();
+      KERNEL_PROBE(i, 3);
       product<KP, false>(Ls, T1t, Ds);  // C_i = D_i - L T1, in place
       sync_compute();
+      KERNEL_PROBE(i, 4);
       if (threadIdx.x < kGJThreads<KP>) gauss_jordan<KP>(Ds, k, R, F, Ms, M + i * kk);
+      KERNEL_PROBE(i, 5);
       Mi = Ms;
     }
     sync_compute();
+    KERNEL_PROBE(i, (factor ? 0 : 10) + 6);
     // y_i = M_i v
     for (int q = 0; q < r; ++q) {
       const float t = dot(Mi, vT + q * ld);
@@ -511,6 +431,7 @@ thomas_fwd_kernel(const __grid_constant__ CUtensorMap mapD, const __grid_constan
         y[i * kr + grp * r + q] = t;
       }
     }
+    KERNEL_PROBE(i, (factor ? 0 : 10) + 7);
     // v and C went into the slot, which the copy engine refills
     copy_async_fence();
   }
@@ -522,8 +443,7 @@ thomas_bwd_kernel(const __grid_constant__ CUtensorMap mapM, const __grid_constan
                   const float* __restrict__ M, const float* __restrict__ Lp,
                   const float* __restrict__ y, float* __restrict__ x, int n, int k, int r, int nb,
                   int tma) {
-  extern __shared__ float4 smem4[];
-  float* smem = aligned_smem(smem4);
+  float* smem = aligned_smem(dynamic_smem());
   constexpr int ld = KP + 4, tile = KP * KP, LPR = kThreads / KP;
   const int vec = r * ld;
   float* ring = smem;                // nb slots of two tiles: M_i, L_i
@@ -562,6 +482,7 @@ thomas_bwd_kernel(const __grid_constant__ CUtensorMap mapM, const __grid_constan
     const int sl = pos.slot, i = n - 1 - s;
     wait_warp(full + sl, pos.parity);
     sync_compute();
+    KERNEL_PROBE(s, 20);
     if (threadIdx.x == 0 && s > 0) copy_async_bar_arrive(empty + prev);
     const float* Ms = ring + 2 * sl * tile;
     const float* Ls = Ms + tile;
@@ -572,6 +493,7 @@ thomas_bwd_kernel(const __grid_constant__ CUtensorMap mapM, const __grid_constan
       if (l == 0) tT[q * ld + grp] = t;
     }
     sync_compute();
+    KERNEL_PROBE(s, 22);
     // x_i = y_i - M_i t
     for (int q = 0; q < r; ++q) {
       const float v = yi[q * ld + grp] - dot(Ms, tT + q * ld);
@@ -580,6 +502,7 @@ thomas_bwd_kernel(const __grid_constant__ CUtensorMap mapM, const __grid_constan
         x[i * kr + grp * r + q] = v;
       }
     }
+    KERNEL_PROBE(s, 23);
   }
 }
 
@@ -604,6 +527,13 @@ Layout layout(int kp, int r, bool fwd) {
   const size_t fit = room / (slot + 4);
   return {fixed, slot, static_cast<int>(fit < kMaxRing ? fit : kMaxRing)};
 }
+
+}  // namespace
+
+// The launchers: host code, which the CPU emulation of the kernels
+// (tools/emulate_thomas.py) leaves out.
+#ifndef KERNEL_EMULATION
+namespace {
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -720,3 +650,4 @@ int thomas_bwd_launch(const float* M, const float* Lp, const float* y,
 }
 
 }  // extern "C"
+#endif  // KERNEL_EMULATION

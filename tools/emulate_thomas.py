@@ -7,29 +7,35 @@ hold them against their plain versions.
 both modes and ``thomas_bwd``; ``nb`` forces the number of stage slots),
 ``chol`` runs ``chol_thomas.cu``; with no shapes, each runs its default cases,
 and with no arguments both do. Needs g++ with C++20 (std::barrier); no GPU,
-no nvcc. The device code becomes C++: each CUDA thread is a ``std::thread``,
-``__syncthreads`` a block-wide ``std::barrier``, ``__syncwarp`` a per-warp
-one, a shuffle an exchange slot per lane between two waits of the warp's
-barrier, ``cp.async`` and the copy engine's copies plain copies (a tensor
-map's box written with the 128-byte swizzle; commits, mbarriers, waits and
-fences do nothing). Shared
+no nvcc.
+
+The source is compiled as it stands, with KERNEL_EMULATION defined: that
+leaves out its CUDA headers, ``staging.cuh`` and its launchers, and the
+prelude here gives C++ counterparts of what ``staging.cuh`` gives the
+kernels. Each CUDA thread is a ``std::thread``, ``__syncthreads`` a
+block-wide ``std::barrier``, ``__syncwarp`` a per-warp one, a named barrier
+one per id, a shuffle an exchange slot per lane between two waits of the
+warp's barrier. ``cp.async`` and the copy engine's copies are plain copies (a
+tensor map's box written with the 128-byte swizzle and zero fill); mbarriers
+are real: one arrival and the announced bytes complete a phase, waits go by
+parity, so the copy warp and the compute threads race as on the card. Shared
 memory is a heap buffer of exactly the launchers' size filled with NaN, and
 the build uses AddressSanitizer, so an overrun or a read of memory nothing
 wrote shows.
 
-``thomas.cu`` runs at its launchers' thread counts (8 kp: 256 or 512, which
-its layouts assume). Each kernel gets the plain versions' inputs: the
-inverses must equal ``thomas_fwd_plain``'s bit for bit, the substitutions
-agree to ``TOL``. ``chol_thomas.cu`` runs with 32, 96 and 512 threads (its
-kernels take the warp count from blockDim): the results must not depend on
-the count, since a race would make them, and must match
+``thomas.cu`` runs at its launchers' 288 threads, which its layouts assume.
+Each kernel gets the plain versions' inputs. The inverses must equal, bit for
+bit, ``ordered_inverses``: ``thomas_fwd_plain``'s arithmetic with each
+coupling product summed in index order as the kernel sums it (a CPU matrix
+product may sum in another order), and agree with ``thomas_fwd_plain`` to
+``TOL``, as the substitutions must. ``chol_thomas.cu`` runs with 32, 96 and
+512 threads (its kernels take the warp count from blockDim): the results must
+not depend on the count, since a race would make them, and must match
 ``chol_thomas_factor_plain`` and ``chol_thomas_solve_plain``. Prints one line
 per case and exits 1 if any check fails. The build lives in a temporary
 directory.
 """
-
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -41,6 +47,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc  # noqa: E402
+from sleqp_tpu_torch.ops.cyclic_reduction import bgj_flat_plain  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_tridiag as pt  # noqa: E402
 
 CSRC = os.path.join(ROOT, "sleqp_tpu_torch", "kernels", "csrc")
@@ -75,6 +82,8 @@ PRELUDE = r"""
 #define __restrict__
 #define __launch_bounds__(...)
 #define __grid_constant__
+#define KERNEL_EMULATION
+#define KERNEL_PROBE(step, mark)
 using std::min;
 // what the emulated copy engine needs of a tensor map: the array and its box
 struct CUtensorMap { const float* src; int cols, rows; };
@@ -88,6 +97,7 @@ float* g_smem;
 std::barrier<>* g_block;
 std::vector<std::unique_ptr<std::barrier<>>> g_warp;
 float g_slot[32][32];
+float4* dynamic_smem() { return reinterpret_cast<float4*>(g_smem); }
 inline void __syncthreads() { g_block->arrive_and_wait(); }
 inline void __syncwarp() { g_warp[threadIdx.x >> 5]->arrive_and_wait(); }
 inline float __shfl_sync(unsigned, float v, int src) {
@@ -109,7 +119,7 @@ std::mutex g_bar_mu;
 std::condition_variable g_bar_cv;
 std::map<const void*, EmuBar> g_bars;
 std::map<int, std::unique_ptr<std::barrier<>>> g_named;  // bar.sync id, count
-void emu_bar_update(const void* bar, int arrive, long long tx) {
+void bar_update(const void* bar, int arrive, long long tx) {
   std::lock_guard<std::mutex> lock(g_bar_mu);
   EmuBar& b = g_bars.at(bar);
   b.pending -= arrive;
@@ -120,38 +130,37 @@ void emu_bar_update(const void* bar, int arrive, long long tx) {
     g_bar_cv.notify_all();
   }
 }
-void emu_copy_async(float* dst, const float* src) { *dst = *src; }
-void emu_copy_async(float* dst, const float* src, bool wide) {
+void copy_async(float* dst, const float* src, bool wide = false) {
   for (int i = 0; i < (wide ? 4 : 1); ++i) dst[i] = src[i];
 }
-void emu_copy_async_wait() {}
-void emu_copy_async_fence() {}
-void emu_copy_async_bar_init(uint64_t* bar) {
+void copy_async_wait() {}
+void copy_async_fence() {}
+void copy_async_bar_init(uint64_t* bar) {
   std::lock_guard<std::mutex> lock(g_bar_mu);
   g_bars[bar] = EmuBar{};
 }
-void emu_copy_async_bar_expect(uint64_t* bar, unsigned bytes) { emu_bar_update(bar, 1, bytes); }
-void emu_copy_async_bar_arrive(uint64_t* bar) { emu_bar_update(bar, 1, 0); }
-void emu_copy_async_bar_wait(uint64_t* bar, unsigned parity) {
+void copy_async_bar_expect(uint64_t* bar, unsigned bytes) { bar_update(bar, 1, bytes); }
+void copy_async_bar_arrive(uint64_t* bar) { bar_update(bar, 1, 0); }
+void copy_async_bar_wait(uint64_t* bar, unsigned parity) {
   std::unique_lock<std::mutex> lock(g_bar_mu);
   g_bar_cv.wait(lock, [&] { return (g_bars.at(bar).phase & 1) != parity; });
 }
-void emu_copy_async_bulk(float* dst, const float* src, unsigned bytes, uint64_t* bar) {
+void copy_async_bulk(float* dst, const float* src, unsigned bytes, uint64_t* bar) {
   for (unsigned i = 0; i < bytes / 4; ++i) dst[i] = src[i];
-  emu_bar_update(bar, 0, -static_cast<long long>(bytes));
+  bar_update(bar, 0, -static_cast<long long>(bytes));
 }
 // a box of 32 columns and map->rows rows, zero beyond map->cols, written
 // with the 128-byte swizzle
-void emu_copy_async_tile(float* dst, const CUtensorMap* map, int c0, int r0, uint64_t* bar) {
+void copy_async_tile(float* dst, const CUtensorMap* map, int c0, int r0, uint64_t* bar) {
   for (int a = 0; a < map->rows; ++a) {
     for (int c = 0; c < 32; ++c) {
       dst[a * 32 + ((((c >> 2) ^ a) & 7) << 2) + (c & 3)] =
           c0 + c < map->cols ? map->src[(size_t)(r0 + a) * map->cols + c0 + c] : 0.0f;
     }
   }
-  emu_bar_update(bar, 0, -32LL * 4 * map->rows);
+  bar_update(bar, 0, -32LL * 4 * map->rows);
 }
-void emu_sync_threads(int id, int count) {
+void sync_threads(int id, int count) {
   std::barrier<>* b;
   {
     std::lock_guard<std::mutex> lock(g_bar_mu);
@@ -272,38 +281,14 @@ int main(int argc, char** argv) {  // fwd|resolve|bwd N k r nb inputs... outputs
 }
 """
 
-# where each source's device code ends (the host code of the launchers stays out)
-STOPS = {"thomas": "using EncodeTiled", "chol": "template <int NT>\nint factor_launch"}
-COPY = re.compile(r"__device__ __forceinline__ void (copy_async\w*|sync_threads)\(([^)]*)\) \{.*?\n\}\n",
-                  re.S)
-
-
 def emulated_source(kind: str) -> str:
-    """The device code of thomas.cu or chol_thomas.cu (up to the launchers)
-    as plain C++, with the host helpers the emulation sizes launches by."""
-    src = open(os.path.join(CSRC, "thomas.cu" if kind == "thomas" else "chol_thomas.cu")).read()
-    body = src[src.index("namespace {"): src.index(STOPS[kind])]
-    if kind == "chol":
-        helper = re.search(r"size_t solve_floats\(.*?\n\}\n", src, flags=re.S)
-        if not helper:
-            raise RuntimeError("emulate: chol_thomas.cu no longer has solve_floats")
-        body += helper.group(0)
-
-    def plain(m):  # the body becomes a call of the prelude's emulation
-        name, args = m.group(1), m.group(2)
-        names = [a.split()[-1].lstrip("*&") for a in args.split(",") if a.strip()]
-        return f"void {name}({args}) {{ emu_{name}({', '.join(names)}); }}\n"
-
-    body, copies = COPY.subn(plain, body)
-    if copies < 2:
-        raise RuntimeError(f"emulate: the {kind} source no longer has copy_async and "
-                           "copy_async_wait as this script expects")
-    body = body.replace("extern __shared__ float4 smem4[];",
-                        "float4* smem4 = reinterpret_cast<float4*>(g_smem);")
-    if "asm" in body or "__shared__" in body:
-        raise RuntimeError("emulate: device code the emulation does not know remains")
+    """thomas.cu or chol_thomas.cu as plain C++: the prelude's counterparts
+    of what ``staging.cuh`` gives the kernels, the source itself (its
+    launchers are host code it leaves out when KERNEL_EMULATION is
+    defined), and a main that runs its kernels on files."""
+    src = os.path.join(CSRC, "thomas.cu" if kind == "thomas" else "chol_thomas.cu")
     main = THOMAS_MAIN if kind == "thomas" else CHOL_MAIN
-    return PRELUDE + body + "}  // namespace\n" + HELPERS + main
+    return PRELUDE + f'#include "{src}"\n' + HELPERS + main
 
 
 def build(kind: str, tmp: str) -> str:
@@ -342,9 +327,48 @@ def _call(exe, tmp, args, arrays, outs):
     return [torch.from_numpy(np.fromfile(f, dtype=np.float32)) for f in out]
 
 
+def fma32(a, b, c):
+    """a * b + c for float32 tensors, rounded once to float32, as a fused
+    multiply-add rounds it.  The product is exact in float64; where the
+    float64 sum lands on a midpoint of two float32 values, its exact error
+    (TwoSum) decides the side."""
+    p, c64 = a.double() * b.double(), c.double()
+    s = p + c64
+    bv = s - p
+    err = (p - (s - bv)) + (c64 - bv)
+    r = s.float()
+    half = s - r.double()
+    other = torch.nextafter(r, torch.where(half > 0, torch.inf, -torch.inf).float())
+    midpoint = (half != 0) & (other.double() - r.double() == 2 * half)
+    return torch.where(midpoint & (err * half > 0), other, r)
+
+
+def chain_product(A, B):
+    """P[a][c] = sum_m A[a][m] B[c][m] in float32, each entry one FMA chain
+    over m in index order from 0, as thomas.cu's ``product`` sums it."""
+    P = torch.zeros(A.shape[0], B.shape[0])
+    for m in range(A.shape[1]):
+        P = fma32(A[:, m:m + 1], B[:, m][None, :], P)
+    return P
+
+
+def ordered_inverses(D, Lp):
+    """``thomas_fwd_plain``'s inverses M_i, C_i = D_i - L (M_{i-1} L^T), with
+    both coupling products summed by ``chain_product``: what thomas.cu
+    computes, on any host."""
+    N, k, _ = D.shape
+    M, Ms = torch.zeros(k, k), []
+    for i in range(N):
+        T1 = chain_product(M, Lp[i])
+        M = bgj_flat_plain((D[i] - chain_product(Lp[i], T1.T))[None])[0]
+        Ms.append(M)
+    return torch.stack(Ms)
+
+
 def thomas_case(exe, tmp, N, k, r, nb=0):
     """Both thomas.cu kernels on one shape, each fed the plain versions'
-    inputs: (M bit for bit, rel error of y, of the resolve's y, of x)."""
+    inputs: (M equal to ``ordered_inverses`` bit for bit, and the rel errors
+    of M, y, the resolve's y and x against the plain versions)."""
     D, Lp, b = inputs((N,), k, r, seed=N + k)
     y_p, M_p = pt.thomas_fwd_plain(D, Lp, b, True)
     x_p = pt.thomas_bwd_plain(M_p, Lp, y_p)
@@ -352,18 +376,20 @@ def thomas_case(exe, tmp, N, k, r, nb=0):
     y, M = _call(exe, tmp, ("fwd", N, k, r, nb), [D, Lp, b], 2)
     (y2,) = _call(exe, tmp, ("resolve", N, k, r, nb), [M_p, Lp, b], 1)
     (x,) = _call(exe, tmp, ("bwd", N, k, r, nb), [M_p, Lp, y_p], 1)
-    return (torch.equal(M.reshape(M_p.shape), M_p), rel(y.reshape(y_p.shape), y_p),
+    M = M.reshape(M_p.shape)
+    return (torch.equal(M, ordered_inverses(D, Lp)), rel(M, M_p), rel(y.reshape(y_p.shape), y_p),
             rel(y2.reshape(y2_p.shape), y2_p), rel(x.reshape(x_p.shape), x_p))
 
 
 def run_thomas(cases, tmp):
     exe, ok = build("thomas", tmp), True
     for case in cases:
-        same, e_y, e_res, e_x = thomas_case(exe, tmp, *case)
-        good = same and max(e_y, e_res, e_x) <= TOL
+        same, *errs = thomas_case(exe, tmp, *case)
+        good = same and max(errs) <= TOL
         ok &= good
-        print(f"thomas {case}: M equal to the plain version's: {same}; y {e_y:.3e}, resolve "
-              f"{e_res:.3e}, x {e_x:.3e}" + ("" if good else "  FAILED"), flush=True)
+        print(f"thomas {case}: M equal to the index-order reference: {same}; against the "
+              "plain versions: M {:.3e}, y {:.3e}, resolve {:.3e}, x {:.3e}".format(*errs)
+              + ("" if good else "  FAILED"), flush=True)
     return ok
 
 

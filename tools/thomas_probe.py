@@ -2,14 +2,15 @@
 
     python3 tools/thomas_probe.py
 
-Needs a CUDA device and nvcc; exits 2 without a device. Builds copies of
-``sleqp_tpu_torch/kernels/csrc/thomas.cu`` and ``chol_thomas.cu`` in which
-thread 0 of block 0 records ``clock64()`` at the phase boundaries of one
-stage, runs each kernel once at chip_smoke.py's shapes, checks it against its
-plain version, and prints one JSON object: the kernels' times by CUDA events,
-the cycles of each phase, and the latency of a few dependent instruction
-chains of one warp (FFMA, SHFL, LDS, MUFU.RSQ, division) and of a barrier of
-eight warps, measured the same way.
+Needs a CUDA device and nvcc; exits 2 without a device. Builds
+``sleqp_tpu_torch/kernels/csrc/thomas.cu`` and ``chol_thomas.cu`` with their
+``KERNEL_PROBE`` marks defined, so that thread 0 of block 0 records
+``clock64()`` at the phase boundaries of one stage, runs each kernel once at
+chip_smoke.py's shapes, checks it against its plain version, and prints one
+JSON object: the kernels' times by CUDA events, the cycles of each phase, and
+the latency of a few dependent instruction chains of one warp (FFMA, SHFL,
+LDS, MUFU.RSQ, division) and of a barrier of eight warps, measured the same
+way.
 
 - thomas.cu at (N, k, r) = (160, 64, 1) and (1560, 32, 1): stage 50 of
   ``thomas_fwd`` with factor (and the Gauss-Jordan cycles per sweep) and
@@ -18,7 +19,7 @@ eight warps, measured the same way.
   factorization; step 50, a forward stage, and step 200, a backward stage,
   of the solve.
 
-The copies live in a temporary directory; the repository is not written.
+The builds live in a temporary directory; the repository is not written.
 """
 
 import ctypes
@@ -40,7 +41,8 @@ from sleqp_tpu_torch.ops import pallas_tridiag as pt  # noqa: E402
 
 CSRC = os.path.join(ROOT, "sleqp_tpu_torch", "kernels", "csrc")
 STAGE = 50  # the probed stage of thomas.cu and of the Cholesky factorization
-FACTOR_STAGE, SOLVE_STEPS = STAGE, (50, 200)
+# the factorization records at SOLVE_STEPS[0] as well
+FACTOR_STAGE, SOLVE_STEPS = STAGE, (STAGE, 200)
 THOMAS_SHAPES = ((160, 64, 1), (1560, 32, 1))
 
 LATENCY_CU = r"""
@@ -86,86 +88,32 @@ LATENCY_KINDS = (("FFMA", 0.0), ("SHFL", 0.0), ("LDS", 0.0), ("MUFU.RSQ", 4.5), 
                  ("bar.sync of 8 warps", 0.0))
 
 
-def _sub(src: str, old: str, new: str, count: int = 1) -> str:
-    if src.count(old) != count:
-        raise RuntimeError(f"probe: expected {count} of {old!r} in the kernel source")
-    return src.replace(old, new)
-
-
-def _finish(s: str) -> str:
-    """The probe array, its reader, and the header's absolute path."""
-    s = _sub(s, "namespace {\n", "__device__ long long g_probe[64];\n"
-             "#define PROBE(cond, idx) if (threadIdx.x == 0 && blockIdx.x == 0 && (cond)) "
-             "g_probe[idx] = clock64();\nnamespace {\n")
-    s = _sub(s, 'extern "C" {\n', 'extern "C" {\nint probe_read(long long* out) {\n'
-             "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe)));\n}\n")
-    return _sub(s, '#include "gj.cuh"', f'#include "{os.path.join(CSRC, "gj.cuh")}"')
-
-
-def probed_thomas() -> str:
-    """thomas.cu with clock64() probes; raises if the source no longer has
-    the lines the probes go beside.  thomas_fwd writes g_probe[base + j],
-    base 0 with factor and 10 without: 0 after the top barrier, 2 v = b - L y,
-    3 M L^T, 4 C, 5 Gauss-Jordan, 6 barrier, 7 y = M v, 8 the next stage's
-    wait for its copies and top barrier.  thomas_bwd writes 20 + j: 0 after
-    the top barrier, 2 t = L^T x and a barrier, 3 x = y - M t, 5 the next
-    step's wait and top barrier."""
-    s = open(os.path.join(CSRC, "thomas.cu")).read()
-    f, fb = f"i == {STAGE}", "(factor ? 0 : 10)"
-    s = _sub(s, "    wait_warp(full + s, pos.parity);\n    sync_compute();\n",
-             "    wait_warp(full + s, pos.parity);\n    sync_compute();\n"
-             f"    PROBE({f}, {fb});\n    PROBE(i == {STAGE + 1}, {fb} + 8);\n")
-    s = _sub(s, "    const float* Mi = Ds;\n", f"    PROBE({f}, {fb} + 2);\n    const float* Mi = Ds;\n")
-    s = _sub(s, "      product<KP, false>(Ls, T1t, Ds);",
-             f"      PROBE({f}, 3);\n      product<KP, false>(Ls, T1t, Ds);")
-    s = _sub(s, "      if (threadIdx.x < kGJThreads<KP>) gauss_jordan<KP>(Ds, k, R, F, Ms, M + i * kk);",
-             f"      PROBE({f}, 4);\n"
-             "      if (threadIdx.x < kGJThreads<KP>) gauss_jordan<KP>(Ds, k, R, F, Ms, M + i * kk);\n"
-             f"      PROBE({f}, 5);")
-    s = _sub(s, "    sync_compute();\n    // y_i = M_i v\n",
-             f"    sync_compute();\n    PROBE({f}, {fb} + 6);\n    // y_i = M_i v\n")
-    s = _sub(s, "        y[i * kr + grp * r + q] = t;\n      }\n    }\n",
-             f"        y[i * kr + grp * r + q] = t;\n      }}\n    }}\n    PROBE({f}, {fb} + 7);\n")
-    b = f"s == {STAGE}"
-    s = _sub(s, "    wait_warp(full + sl, pos.parity);\n    sync_compute();\n",
-             "    wait_warp(full + sl, pos.parity);\n    sync_compute();\n"
-             f"    PROBE({b}, 20);\n    PROBE(s == {STAGE + 1}, 25);\n")
-    s = _sub(s, "    // x_i = y_i - M_i t\n", f"    PROBE({b}, 22);\n    // x_i = y_i - M_i t\n")
-    s = _sub(s, "        x[i * kr + grp * r + q] = v;\n      }\n    }\n",
-             f"        x[i * kr + grp * r + q] = v;\n      }}\n    }}\n    PROBE({b}, 23);\n")
-    return _finish(s)
-
-
-def probed_chol() -> str:
-    """chol_thomas.cu with clock64() probes, as probed_thomas."""
-    s = open(os.path.join(CSRC, "chol_thomas.cu")).read()
-    # factorization, stage FACTOR_STAGE: 0 top barrier, 1 Z, 2 Z Z^T,
-    # 3 Cholesky, 4 writing the factor out
-    f = f"i == {FACTOR_STAGE}"
-    s = _sub(s, "    copy_async_wait();\n    __syncthreads();\n    // with prefetch",
-             f"    copy_async_wait();\n    __syncthreads();\n    PROBE({f}, 0);\n    // with prefetch")
-    s = _sub(s, "      // C_i = D_i - Z Z^T", f"      PROBE({f}, 1);\n      // C_i = D_i - Z Z^T")
-    s = _sub(s, "    cholesky_blocked<NT>(C, ld, k, lane, warp);",
-             f"    PROBE({f}, 2);\n    cholesky_blocked<NT>(C, ld, k, lane, warp);\n    PROBE({f}, 3);")
-    wrote = "        if (b == a) Rs[(i % nd) * kMaxK + a] = 1.0f / v;\n      }\n    }\n"
-    s = _sub(s, wrote, wrote + f"    PROBE({f}, 4);\n")
-    # solve, steps SOLVE_STEPS: 0 top barrier, 1 issue, 2 coupling product,
-    # 3 forward substitution, 4 backward substitution, 5 writing x
-    a, b = SOLVE_STEPS
-
-    def probe(j):
-        return f"PROBE(n == {a} || n == {b}, (n == {a} ? 10 : 20) + {j});"
-
-    s = _sub(s, "    copy_async_wait();\n    __syncthreads();\n    // the other slot",
-             f"    copy_async_wait();\n    {probe(0)}\n    __syncthreads();\n    {probe(1)}\n"
-             "    // the other slot")
-    s = _sub(s, "    const float* G = smem + sl * slot;", f"    {probe(2)}\n    const float* G = smem + sl * slot;")
-    s = _sub(s, "      forward_subst<NT>(y, G, ld, lane, rinv);\n      backward_subst<NT>(y, G, ld, lane, rinv);",
-             f"      {probe(3)}\n      forward_subst<NT>(y, G, ld, lane, rinv);\n      {probe(4)}\n"
-             f"      backward_subst<NT>(y, G, ld, lane, rinv);\n      {probe(5)}")
-    s = _sub(s, "    if (nbuf == 1) __syncthreads();  // every warp",
-             f"    {probe(6)}\n    if (nbuf == 1) __syncthreads();  // every warp")
-    return _finish(s)
+def probed(name: str, steps) -> str:
+    """A source that includes csrc/<name> with its KERNEL_PROBE marks
+    defined: thread 0 of block 0 writes clock64() to g_probe[mark] at stage
+    steps[0] and to g_probe[32 + mark] at stage steps[1], and probe_read
+    copies g_probe out.  The marks are the kernels' own (thomas.cu:
+    thomas_fwd mark + 0 with factor, + 10 without: 0 after the top barrier,
+    2 v = b - L y, 3 M L^T, 4 C, 5 Gauss-Jordan, 6 barrier, 7 y = M v;
+    thomas_bwd 20 after the top barrier, 22 t = L^T x and a barrier, 23
+    x = y - M t.  chol_thomas.cu: the factorization 0 top barrier, 1 Z,
+    2 Z Z^T, 3 Cholesky, 4 writing the factor out; the solve 10 copies
+    waited for, 11 top barrier, 12 issue, 13 coupling product, 14 forward
+    substitution, 15 backward substitution, 16 writing x)."""
+    return f"""#include <cuda_runtime.h>
+__device__ long long g_probe[64];
+__device__ __forceinline__ void probe_mark(int step, int mark) {{
+  if (threadIdx.x == 0 && blockIdx.x == 0) {{
+    if (step == {steps[0]}) g_probe[mark] = clock64();
+    if (step == {steps[1]}) g_probe[32 + mark] = clock64();
+  }}
+}}
+#define KERNEL_PROBE(step, mark) probe_mark(step, mark)
+#include "{os.path.join(CSRC, name)}"
+extern "C" int probe_read(long long* out) {{
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe)));
+}}
+"""
 
 
 def build(src: str, tmp: str, name: str) -> ctypes.CDLL:
@@ -233,19 +181,19 @@ def probe_thomas(lib, out):
 
         rec = {"factor_ms": event_ms(lambda: fwd(D, y, True), 5)}
         t = read_probes(lib)
-        cyc = [t[2] - t[0]] + [t[j + 1] - t[j] for j in range(2, 8)]
+        cyc = [t[2] - t[0]] + [t[j + 1] - t[j] for j in range(2, 7)] + [t[32] - t[7]]
         rec[f"factor_stage_{STAGE}_cycles"] = dict(zip(fwd_names, cyc))
         rec["gauss_jordan_cycles_per_sweep"] = cyc[3] / k
         rec["resolve_ms"] = event_ms(lambda: fwd(M, y2, False), 20)
         t = read_probes(lib)
         rec[f"resolve_stage_{STAGE}_cycles"] = {
             "v = b - L y": t[12] - t[10], "barrier": t[16] - t[12], "y = M v": t[17] - t[16],
-            "next stage's wait": t[18] - t[17]}
+            "next stage's wait": t[42] - t[17]}
         rec["bwd_ms"] = event_ms(bwd, 20)
         t = read_probes(lib)
         rec[f"bwd_step_{STAGE}_cycles"] = {
             "t = L^T x, barrier": t[22] - t[20], "x = y - M t": t[23] - t[22],
-            "next step's wait": t[25] - t[23]}
+            "next step's wait": t[52] - t[23]}
         if N <= 160:  # the plain versions take ~10^5 launches at N = 1560
             y_p, M_p = pt.thomas_fwd_plain(D, Lp, b, True)
             pairs = ((M, M_p), (y, y_p), (y2, pt.thomas_fwd_plain(M_p, Lp, b, False)[0]),
@@ -285,7 +233,7 @@ def probe_chol(lib, out):
         ("Z", "Z Z^T", "Cholesky", "write factor"), [t[j + 1] - t[j] for j in range(4)]))
     names = ("barrier", "issue copies", "coupling product", "forward subst", "backward subst",
              "write x")
-    for base, step in zip((10, 20), SOLVE_STEPS):
+    for base, step in zip((10, 42), SOLVE_STEPS):
         out[f"solve_step_{step}_cycles"] = dict(zip(names, [t[base + j + 1] - t[base + j] for j in range(6)]))
 
 
@@ -298,9 +246,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()}
     with tempfile.TemporaryDirectory() as tmp:
-        probe_thomas(build(probed_thomas(), tmp, "thomas_probe"), out)
+        probe_thomas(build(probed("thomas.cu", (STAGE, STAGE + 1)), tmp, "thomas_probe"), out)
         out["chol_thomas (1, 160, 64, 1)"] = chol = {}
-        probe_chol(build(probed_chol(), tmp, "chol_probe"), chol)
+        probe_chol(build(probed("chol_thomas.cu", SOLVE_STEPS), tmp, "chol_probe"), chol)
         lat = build(LATENCY_CU, tmp, "latency")
         o = torch.zeros(32, device="cuda")
         cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
