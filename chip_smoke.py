@@ -13,7 +13,10 @@ run from a checkout of the repository, on a machine with a CUDA device and
    and a library call on the same inputs as a yardstick, never called by
    the port (``torch.linalg.inv`` for the batched inverses; for the
    Thomas kernels the dense Cholesky factorization, triangular solve or
-   Cholesky solve of the same system, assembled);
+   Cholesky solve of the same system, assembled); then time the batched
+   inverses at every batch the main paths launch them on (one
+   cyclic-reduction factorization at T = 1560 and at N = 160), with the
+   sums per mixed OCP iteration and per ``cr32`` factorization;
 3. the mixed-precision OCP solve: ``ocp_solve`` with
    ``Settings(compute_dtype="float32")`` on the multistage problem of
    ``bench.py`` (T = 1560, nx = nu = 32, n = 99 840), with the kernels'
@@ -80,13 +83,15 @@ KERNELS = {
         fn=cr.bgj_flat,
         plain=cr.bgj_flat_plain,
         replaces="sleqp_tpu/ops/cyclic_reduction.py:42",
-        shapes=[(781, 32), (9, 32), (13, 3), (1, 4)],
+        # the main path's largest batch, ragged k at each padded width
+        # (32, 64, 96) and the widest k
+        shapes=[(781, 32), (9, 32), (13, 3), (1, 4), (5, 17), (4, 33), (3, 77), (2, 96)],
     ),
     "bgj_blocked64": dict(
         fn=cr.bgj_blocked64,
         plain=cr.bgj_blocked64_plain,
         replaces="sleqp_tpu/ops/cyclic_reduction.py:143",
-        shapes=[(1561, 64)],
+        shapes=[(1561, 64), (1, 64)],
     ),
 }
 SOURCE = "sleqp_tpu_torch/kernels/csrc/bgj.cu"
@@ -160,6 +165,28 @@ def time_call(fn, reps=20, warm=True):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Device time of one fn() by CUDA events around a CUDA graph of
+    ``reps`` calls, after a warm-up call: the kernel's own time, which
+    back-to-back launches from the host hide once a kernel takes less than
+    the wrapper's ~10-20 us of Python."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -282,15 +309,17 @@ def rel_max(K, P):
     return float((K - P).abs().max() / P.abs().max())
 
 
-def flat_inverses_per_solve(n):
-    """bgj_flat launches of one cyclic-reduction factorization of n blocks
-    of 32: one per level, one for the root (11 at n = 1560)."""
-    count = 1
+def cr_batches(n):
+    """The batches of the batched inverses of one cyclic-reduction
+    factorization of n blocks (``cr.cr_factor``): one per level, the even
+    blocks of the level identity-padded to odd, and the root (781, 391, ...,
+    1 at n = 1560: 11 launches)."""
+    batches = []
     while n > 1:
-        n += 1 - n % 2  # identity-padded to odd
+        n += 1 - n % 2
+        batches.append((n + 1) // 2)
         n = (n - 1) // 2
-        count += 1
-    return count
+    return batches + [1]
 
 
 def bench_problem():
@@ -366,7 +395,8 @@ def main():
                     f"plain {ident_p:.3e}; kernel-plain max abs {max_abs:.3e}, "
                     f"rel fro {rel:.3e}")
             if i == 0:  # the main path's largest shape: time it
-                ms = time_call(lambda: spec["fn"](C))
+                ms = graph_ms(lambda: spec["fn"](C))
+                host_launched = time_call(lambda: spec["fn"](C))
                 plain_ms = time_call(lambda: spec["plain"](C), reps=5)
                 lib_ms = time_call(lambda: torch.linalg.inv(C))
                 bound_ms, bound_by = bound(name, B, k)
@@ -375,12 +405,29 @@ def main():
                     max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=lib_ms,
                 )
-                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                         f"torch.linalg.inv {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by})")
+                line += (f"; kernel {ms:.4f} ms (CUDA graph), {host_launched:.4f} ms launched "
+                         f"from the host, plain {plain_ms:.4f} ms, torch.linalg.inv "
+                         f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
             log(2, line)
             check(rel <= KERNEL_RTOL, f"{name} ({B},{k}) disagrees with its plain version: {rel:.3e}")
             check(ident_k < 1e-4, f"{name} ({B},{k}) identity error {ident_k:.3e} >= 1e-4")
+
+    # each batch the main paths launch the inverses on: B1 at the levels of
+    # the OCP's dual Schur complement (T = 1560, k = 32), eleven a mixed
+    # iteration; B2 on the stage Hessians (T + 1 blocks of 64), once a mixed
+    # iteration, and at the levels of cr32 on the structured KKT (N = 160)
+    for name, k, batches, per in (
+        ("bgj_flat", NX, cr_batches(T_STAGES), "mixed OCP iteration"),
+        ("bgj_blocked64", NX + NU, [T_STAGES + 1], "mixed OCP iteration"),
+        ("bgj_blocked64", 64, cr_batches(160), "cr32 factorization at N = 160"),
+    ):
+        times = {}
+        for B in batches:
+            C = spd_blocks(B, k, seed=B + k)
+            times[B] = graph_ms(lambda: KERNELS[name]["fn"](C))
+        log(2, f"{name} at k={k}, ms by batch (CUDA graph): "
+               + ", ".join(f"{B}: {t:.4f}" for B, t in times.items())
+               + f"; sum per {per} ({len(batches)} launches) {sum(times.values()):.4f} ms")
 
     # -- phase 2, continued: the block-Thomas kernels ----------------------
     for i, (N, k, r) in enumerate(THOMAS_SHAPES):
@@ -533,7 +580,7 @@ def main():
     check(out.U.shape == (T_STAGES, NU) and out.X.shape == (T_STAGES + 1, NX), "solution shape")
     check(bool(torch.isfinite(out.U).all() & torch.isfinite(out.X).all()), "non-finite solution")
     check(launches["bgj_blocked64"] >= iters, "bgj_blocked64 not launched once per iteration")
-    per_solve = flat_inverses_per_solve(T_STAGES)
+    per_solve = len(cr_batches(T_STAGES))
     check(launches["bgj_flat"] >= per_solve * iters,
           f"bgj_flat not launched {per_solve} times per iteration")
     check(all(launches[n] > 0 for n in KERNELS), f"a kernel was not launched: {launches}")

@@ -67,7 +67,6 @@
 #ifndef KERNEL_EMULATION  // tools/emulate_thomas.py brings its own
 #include <cuda_runtime.h>
 
-#include "gj.cuh"
 #include "staging.cuh"
 #endif
 

@@ -1,16 +1,34 @@
-// What the streaming kernels of thomas.cu and chol_thomas.cu use of the
-// card beyond plain C++: asynchronous copies into shared memory, the
-// mbarriers that hand them over, named barriers, the block's dynamic shared
-// memory, and a probe mark.  Each is a seam: tools/emulate_thomas.py
-// compiles the kernels with KERNEL_EMULATION defined, which leaves this
-// header out, and gives each a C++ counterpart; tools/thomas_probe.py
-// defines KERNEL_PROBE to record clock64() at the marks.
+// What the kernels of bgj.cu, thomas.cu and chol_thomas.cu use of the card
+// beyond plain C++: asynchronous copies into shared memory, the mbarriers
+// that hand them over, named barriers, the block's dynamic shared memory,
+// and a probe mark; and the launchers' shared-memory attribute.  Each is a
+// seam: tools/emulate_thomas.py compiles the kernels with KERNEL_EMULATION
+// defined, which leaves this header out, and gives each device function a
+// C++ counterpart; tools/thomas_probe.py defines KERNEL_PROBE to record
+// clock64() at the marks.
 #pragma once
 
 #include <cstdint>
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+
+// Let `kernel` take `bytes` of dynamic shared memory (a launch gets 48 KB
+// without asking); returns the cudaError_t as an int, 0 on success.
+inline int set_smem(const void* kernel, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
+// Ask for the largest shared-memory carveout of the SM for `kernel`, so
+// that as many of its blocks fit as its shared memory allows; returns the
+// cudaError_t as an int, 0 on success.
+inline int prefer_shared(const void* kernel) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      static_cast<int>(cudaSharedmemCarveoutMaxShared)));
+}
 
 // A mark at a phase boundary of stage `step`: nothing unless the build
 // defines it (tools/thomas_probe.py).

@@ -34,7 +34,7 @@
 //     transposed so both products read rows.  Each output is one FMA chain
 //     over m in index order, as a CPU matrix product sums it.
 //   - The inverse is Gauss-Jordan in place on a kp x kp array held in the
-//     registers of 4 kp threads (`gauss_jordan`): the tableau [A | I]'s
+//     registers of 4 kp threads (gj.cuh): the tableau [A | I]'s
 //     arithmetic on the entries that are not trivially 0 or 1, so M equals
 //     the plain version's bit for bit with half the tableau's FMAs.  Each
 //     sweep is a barrier, a load, a division and the FMAs: ~280 cycles at
@@ -54,9 +54,10 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
-#include "gj.cuh"
 #include "staging.cuh"
 #endif
+
+#include "gj.cuh"
 
 namespace {
 
@@ -88,7 +89,9 @@ constexpr int kGJThreads = 4 * KP;
 
 // A barrier of the threads that invert.
 template <int KP>
-__device__ __forceinline__ void sync_gj() { sync_threads(2, kGJThreads<KP>); }
+struct SyncGJ {
+  __device__ void operator()() const { sync_threads(2, kGJThreads<KP>); }
+};
 
 // The offset of entry (a, c) of a kp x kp tile in shared memory, as the
 // copy engine lays out its boxes with the 128-byte swizzle: box c / 32
@@ -256,71 +259,21 @@ __device__ __forceinline__ void product(const float* A, const float* B, float* o
   }
 }
 
-// Sweep j = j0 + JJ of gauss_jordan, then the rest of the j0 block's
-// (templates, so the register indices below are constants).  The threads
-// that hold row j publish it to slot JJ & 1 of R, the thread of each row
-// group that holds column j publishes its entries to F and sets them to
-// e_j's; one barrier; then each thread divides its column's pivot-row
-// entry by the pivot (1/piv at column j) and makes one FMA per entry with
-// f = column j - e_j, row j+1's first.  Warps without column j skip its
-// branch whole (`mine`: a warp holds 32 consecutive columns).
-template <int KP, int JJ>
-__device__ __forceinline__ void sweeps(float (&w)[KP / 4], int j0, int k, float* R,
-                                       float* F, int c, int r0) {
-  constexpr int RPT = KP / 4, p = JJ & 1, un = (JJ + 1) % RPT;
-  const int j = j0 + JJ;
-  if (j >= k) return;
-  float* Rj = R + p * KP;
-  float* Fj = F + p * KP;
-  const bool pivot_rows = r0 == j0;  // this thread holds row j
-  const bool mine = ((c ^ j) & ~31) == 0;
-  if (pivot_rows) Rj[c] = w[JJ];
-  if (mine && c == j) {
-#pragma unroll
-    for (int u = 0; u < RPT; u += 4) {
-      *reinterpret_cast<float4*>(Fj + r0 + u) = make_float4(w[u], w[u + 1], w[u + 2], w[u + 3]);
-    }
-#pragma unroll
-    for (int u = 0; u < RPT; ++u) w[u] = 0.0f;
-    if (pivot_rows) w[JJ] = 1.0f;
-  }
-  sync_gj<KP>();
-  const float rc = (c == j ? 1.0f : Rj[c]) / Rj[j];
-  float f[RPT];
-#pragma unroll
-  for (int u = 0; u < RPT; u += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(Fj + r0 + u);
-    f[u] = v.x, f[u + 1] = v.y, f[u + 2] = v.z, f[u + 3] = v.w;
-  }
-  if (pivot_rows) f[JJ] -= 1.0f;
-  w[un] = fmaf(-f[un], rc, w[un]);
-#pragma unroll
-  for (int u = 0; u < RPT; ++u) {
-    if (u != un) w[u] = fmaf(-f[u], rc, w[u]);
-  }
-  if constexpr (JJ + 1 < RPT) sweeps<KP, JJ + 1>(w, j0, k, R, F, c, r0);
-}
-
-// M = C^-1 for the SPD tile C (identity beyond k) by k unpivoted
-// Gauss-Jordan sweeps in registers, by the first kGJThreads threads:
-// thread t holds rows r0 + u (u < kp/4, r0 = kp/4 (t / kp)) of column
-// c = t % kp.  Before sweep j, W holds the inverse's columns < j and the
-// reduced matrix's columns >= j; the sweep is W[i][c] -= f_i W[j][c] /
-// piv_j with f = W[:, j] - e_j, and column j becomes
-// fma(-f_i, 1/piv_j, delta_ij): the tableau [A | I]'s arithmetic on the
-// entries that are not trivially 0 or 1.  R and F (2 kp floats each) hold
-// the pivot row and column of two sweeps.  Writes M into the tile Ms and
+// M = C^-1 for the SPD tile C (identity beyond k) by gj.cuh's in-register
+// Gauss-Jordan, on the first kGJThreads threads: thread t holds rows
+// r0 + u (u < kp/4, r0 = kp/4 (t / kp)) of column c = t % kp.  R and F
+// (2 kp floats each) are its pivot slots.  Writes M into the tile Ms and
 // the k x k block Mout.  A sweep is one barrier, a division and a few
 // loads on the chain.
 template <int KP>
-__device__ __forceinline__ void gauss_jordan(const float* C, int k, float* R, float* F, float* Ms,
+__device__ __forceinline__ void invert_stage(const float* C, int k, float* R, float* F, float* Ms,
                                              float* Mout) {
   constexpr int RPT = KP / 4;
   const int c = threadIdx.x % KP, r0 = RPT * (threadIdx.x / KP);
   float w[RPT];
 #pragma unroll
   for (int u = 0; u < RPT; ++u) w[u] = C[at<KP>(r0 + u, c)];
-  for (int j0 = 0; j0 < k; j0 += RPT) sweeps<KP, 0>(w, j0, k, R, F, c, r0);
+  gauss_jordan<KP, RPT>(w, k, R, F, c, r0, SyncGJ<KP>{});
 #pragma unroll
   for (int u = 0; u < RPT; ++u) {
     const int a = r0 + u;
@@ -417,7 +370,7 @@ thomas_fwd_kernel(const __grid_constant__ CUtensorMap mapD, const __grid_constan
       product<KP, false>(Ls, T1t, Ds);  // C_i = D_i - L T1, in place
       sync_compute();
       KERNEL_PROBE(i, 4);
-      if (threadIdx.x < kGJThreads<KP>) gauss_jordan<KP>(Ds, k, R, F, Ms, M + i * kk);
+      if (threadIdx.x < kGJThreads<KP>) invert_stage<KP>(Ds, k, R, F, Ms, M + i * kk);
       KERNEL_PROBE(i, 5);
       Mi = Ms;
     }

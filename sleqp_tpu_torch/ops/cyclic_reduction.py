@@ -86,14 +86,16 @@ def bgj_flat(C: Tensor) -> Tensor:
 
     Kernel ``bgj_flat`` in ``kernels/csrc/bgj.cu``.  Replaces
     ``sleqp_tpu/ops/cyclic_reduction.py::_bgj_kernel`` (pallas_call at
-    :228).  One thread block per matrix keeps the k x 2k tableau in shared
-    memory (8 KB at k = 32) and makes k sweeps with a barrier between them;
-    device memory sees each block read once and written once.  Bound: the
-    2 B k^2 * 4 bytes it moves against the (4 k^3 + 3 k^2) B float32
-    operations of the sweeps; at the main path's largest batch,
-    (781, 32, 32), the bytes bound it (1.9 us at 3.35 TB/s against 1.6 us at
-    67 TFLOP/s).  The sweeps run one after another inside a block, with
-    2k barriers, so latency rather than either bound sets its time.
+    :228).  The k sweeps run in place in registers (``kernels/csrc/gj.cuh``),
+    the block padded with the identity to 32, 64 or 96 rows and columns: at
+    32 one warp holds a matrix, a column a lane, two matrices a thread
+    block; at 64 and 96 four threads a column.  Device memory sees each
+    block read once and written once.  Bound: the 2 B k^2 * 4 bytes it moves
+    against the B k^3 float32 operations an SPD inverse needs at the least;
+    at the main path's largest batch, (781, 32, 32), the bytes bound it
+    (1.9 us at 3.35 TB/s against 0.4 us at 67 TFLOP/s).  Each matrix is a
+    chain of k dependent sweeps, so the latency of one chain rather than
+    either bound sets its time.
     """
     _check_blocks(C, "bgj_flat")
     if not _build.runs_kernel(C, "bgj_flat"):
@@ -105,8 +107,8 @@ def bgj_flat(C: Tensor) -> Tensor:
     lib = _build.load()
     if k > lib.bgj_flat_max_k():
         raise ValueError(
-            f"bgj_flat: k={k} exceeds {lib.bgj_flat_max_k()}, the largest "
-            "block whose tableau fits one thread block's shared memory"
+            f"bgj_flat: k={k} exceeds {lib.bgj_flat_max_k()}, the widest "
+            "block the kernel pads (its registers hold the matrix)"
         )
     with torch.cuda.device(C.device):
         code = lib.bgj_flat_launch(
@@ -161,15 +163,16 @@ def bgj_blocked64(C: Tensor) -> Tensor:
 
     Kernel ``bgj_blocked64`` in ``kernels/csrc/bgj.cu``.  Replaces
     ``sleqp_tpu/ops/cyclic_reduction.py::_bgj_blocked_kernel`` (pallas_call
-    at :218).  One thread block per matrix: two 2x2 block-Schur levels down
-    to 16 x 16 Gauss-Jordan leaves, the six products of each level as
-    float32 FMA loops in shared memory (the reference's ``Precision.HIGHEST``
-    products; TF32 keeps about three decimal digits, far from the 1e-4
-    identity bar of the reference test).  Bound at the main path's
-    (1561, 64, 64): it moves
-    2 * 1561 * 64^2 * 4 B = 51 MB and does ~0.87e9 float32 operations, so
-    device memory bounds it (15 us at 3.35 TB/s against 13 us at 67
-    TFLOP/s).
+    at :218).  One 128-thread block per matrix: two 2x2 block-Schur levels
+    down to 16 x 16 Gauss-Jordan leaves on one warp, the six products of
+    each level register-tiled float32 FMA chains in index order (the
+    reference's ``Precision.HIGHEST`` products; TF32 keeps about three
+    decimal digits, far from the 1e-4 identity bar of the reference test).
+    Bound at the main path's (1561, 64, 64): it moves
+    2 * 1561 * 64^2 * 4 B = 51 MB against 1561 * 64^3 float32 operations
+    at the least, so device memory bounds it (15 us at 3.35 TB/s against
+    6 us at 67 TFLOP/s); the Schur levels' ~262k FMAs a matrix take 12 us
+    of the card's float32 rate.
     """
     _check_blocks(C, "bgj_blocked64")
     if not _build.runs_kernel(C, "bgj_blocked64"):

@@ -48,9 +48,12 @@ def _spd_blocks(B, k, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,k", [(781, 32), (9, 32), (13, 3), (1, 4), (1561, 64)])
+@pytest.mark.parametrize("B,k", [(781, 32), (9, 32), (13, 3), (1, 4), (5, 17), (4, 33), (3, 77),
+                                 (2, 96), (1561, 64), (1, 64)])
 def test_kernel_matches_plain_version(cuda, B, k):
-    """The main path's shapes. Both are float32 inverses whose identity
+    """The main path's shapes, ragged blocks at each padded width of
+    bgj_flat (32, 64, 96), its widest block, and one block of 64 (the
+    root of a cyclic reduction). Both are float32 inverses whose identity
     error the reference test bounds by 1e-4, and
     ||K - P|| <= ||P|| ||I - C K||."""
     C = _spd_blocks(B, k, seed=B + k, device=cuda)
@@ -74,7 +77,7 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         cr.bgj_flat(_spd_blocks(2, 8, 0, cuda).transpose(1, 2))
     with pytest.raises(ValueError, match="exceeds"):
-        cr.bgj_flat(_spd_blocks(1, 96, 0, cuda))
+        cr.bgj_flat(_spd_blocks(1, 97, 0, cuda))
     with pytest.raises(ValueError, match="k=64"):
         cr.bgj_blocked64(_spd_blocks(1, 32, 0, cuda))
 

@@ -9,48 +9,23 @@ one check of the CUDA source that runs without a card: an index error, a read
 of shared memory nothing wrote, or a missing barrier shows here. Each kernel
 gets the plain versions' inputs: the inverses M must equal, bit for bit, the
 tool's ``ordered_inverses``, ``thomas_fwd_plain``'s arithmetic with each
-coupling product one FMA chain in index order (the kernel's Gauss-Jordan
-and products repeat it), which no host's BLAS decides; M, y and x agree
+coupling product one FMA chain in index order and each update one
+correctly rounded FMA (the kernel's Gauss-Jordan and products repeat it),
+which no host's BLAS decides; M, y and x agree
 with the plain versions to 1e-6 relative (their sums may run in another
 order). Skips where g++ lacks C++20.
 """
 
-import importlib.util
-import os
-import shutil
-import subprocess
-
 import pytest
 
-from torch_parity import no_jax_cache_writes  # noqa: F401
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _load_tool():
-    spec = importlib.util.spec_from_file_location(
-        "emulate_thomas", os.path.join(ROOT, "tools", "emulate_thomas.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-emu = _load_tool()
+from torch_parity import emulated_kernels, no_jax_cache_writes  # noqa: F401
+from torch_parity import emulation as emu
 
 
 @pytest.fixture(scope="module")
 def emulator(tmp_path_factory):
     """The emulation of thomas.cu, built once: (executable, work dir)."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++")
-    tmp = str(tmp_path_factory.mktemp("thomas_emu"))
-    probe = os.path.join(tmp, "probe.cpp")
-    with open(probe, "w") as fh:
-        fh.write("#include <barrier>\nint main() { std::barrier<> b(1); b.arrive_and_wait(); }\n")
-    if subprocess.run(["g++", "-std=c++20", "-pthread", probe, "-o", probe + ".out"],
-                      capture_output=True).returncode != 0:
-        pytest.skip("g++ has no C++20 std::barrier")
-    return emu.build("thomas", tmp), tmp
+    return emulated_kernels("thomas", tmp_path_factory)
 
 
 # (N, k, r, stage slots; 0: as many as the launcher takes): a padded width

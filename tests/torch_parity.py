@@ -6,6 +6,11 @@ JAX side runs on the CPU as its own tests do (Pallas in interpret mode);
 the port runs on the CPU through its kernels' plain versions.
 """
 
+import importlib.util
+import os
+import shutil
+import subprocess
+
 import jax
 import numpy as np
 import pytest
@@ -26,6 +31,36 @@ def no_jax_cache_writes():
     jax.config.update(key, 2**62)
     yield
     jax.config.update(key, old)
+
+
+def _load_emulation_tool():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                        "emulate_thomas.py")
+    spec = importlib.util.spec_from_file_location("emulate_thomas", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# tools/emulate_thomas.py: the port's CUDA sources compiled with g++ and run
+# on the CPU, one std::thread per CUDA thread
+emulation = _load_emulation_tool()
+
+
+def emulated_kernels(kind, tmp_path_factory):
+    """The emulation of one kernel source (``emulation.SOURCES``), built
+    once for a module: (executable, work dir).  Skips where g++ or its
+    C++20 std::barrier is missing."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    tmp = str(tmp_path_factory.mktemp(f"{kind}_emu"))
+    probe = os.path.join(tmp, "probe.cpp")
+    with open(probe, "w") as fh:
+        fh.write("#include <barrier>\nint main() { std::barrier<> b(1); b.arrive_and_wait(); }\n")
+    if subprocess.run(["g++", "-std=c++20", "-pthread", probe, "-o", probe + ".out"],
+                      capture_output=True).returncode != 0:
+        pytest.skip("g++ has no C++20 std::barrier")
+    return emulation.build(kind, tmp), tmp
 
 
 def spd_blocks(B, k, seed):

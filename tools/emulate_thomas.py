@@ -1,13 +1,14 @@
-"""Run the block-Thomas CUDA kernels on the CPU, one thread per CUDA thread, and
-hold them against their plain versions.
+"""Run the port's CUDA kernels on the CPU, one thread per CUDA thread, and hold
+them against their plain versions.
 
-    python3 tools/emulate_thomas.py [thomas|chol] [N,k,r[,nb] | P,c,k,r ...]
+    python3 tools/emulate_thomas.py [thomas|chol|bgj] [N,k,r[,nb] | P,c,k,r | B,k[,1] ...]
 
 ``thomas`` runs ``sleqp_tpu_torch/kernels/csrc/thomas.cu`` (``thomas_fwd`` in
 both modes and ``thomas_bwd``; ``nb`` forces the number of stage slots),
-``chol`` runs ``chol_thomas.cu``; with no shapes, each runs its default cases,
-and with no arguments both do. Needs g++ with C++20 (std::barrier); no GPU,
-no nvcc.
+``chol`` runs ``chol_thomas.cu``, ``bgj`` runs ``bgj.cu`` (``bgj_flat`` on B
+blocks of k, or ``bgj_blocked64`` on B blocks of 64 where a third value is 1);
+with no shapes, each runs its default cases, and with no arguments all do.
+Needs g++ with C++20 (std::barrier); no GPU, no nvcc.
 
 The source is compiled as it stands, with KERNEL_EMULATION defined: that
 leaves out its CUDA headers, ``staging.cuh`` and its launchers, and the
@@ -27,8 +28,13 @@ wrote shows.
 Each kernel gets the plain versions' inputs. The inverses must equal, bit for
 bit, ``ordered_inverses``: ``thomas_fwd_plain``'s arithmetic with each
 coupling product summed in index order as the kernel sums it (a CPU matrix
-product may sum in another order), and agree with ``thomas_fwd_plain`` to
-``TOL``, as the substitutions must. ``chol_thomas.cu`` runs with 32, 96 and
+product may sum in another order) and each update one ``fma32``, and agree
+with ``thomas_fwd_plain`` to ``TOL``, as the substitutions must. ``bgj.cu``
+runs at its launchers' thread counts; its inverses must equal, bit for bit,
+``ordered_flat_inverses`` (``bgj_flat_plain``'s sweeps, each update one
+``fma32``) or ``ordered_blocked64`` (``bgj_blocked64_plain``'s two Schur
+levels with each product an FMA chain in index order), and agree with the
+plain versions to ``TOL``. ``chol_thomas.cu`` runs with 32, 96 and
 512 threads (its kernels take the warp count from blockDim): the results must
 not depend on the count, since a race would make them, and must match
 ``chol_thomas_factor_plain`` and ``chol_thomas_solve_plain``. Prints one line
@@ -47,7 +53,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc  # noqa: E402
-from sleqp_tpu_torch.ops.cyclic_reduction import bgj_flat_plain  # noqa: E402
+from sleqp_tpu_torch.ops import cyclic_reduction as cr  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_tridiag as pt  # noqa: E402
 
 CSRC = os.path.join(ROOT, "sleqp_tpu_torch", "kernels", "csrc")
@@ -60,6 +66,9 @@ THOMAS_CASES = [(3, 3, 1), (4, 17, 5, 2), (2, 64, 1), (6, 33, 5, 3), (7, 64, 1),
 # right-hand sides
 CHOL_CASES = [(1, 3, 3, 1), (2, 4, 17, 5), (3, 7, 17, 33), (2, 3, 33, 8), (1, 6, 64, 1),
               (1, 3, 64, 128), (1, 3, 128, 2), (1, 3, 128, 128)]
+# (B, k, blocked): bgj_flat at the padded widths 32, 64 and 96 with ragged
+# k, the widest k; bgj_blocked64
+BGJ_CASES = [(3, 3, 0), (2, 17, 0), (3, 32, 0), (2, 33, 0), (1, 77, 0), (1, 96, 0), (2, 64, 1)]
 TOL = 1e-6  # kernel against plain version, max |K - P| / max |P|
 
 PRELUDE = r"""
@@ -91,6 +100,8 @@ inline size_t __cvta_generic_to_shared(const void* p) { return reinterpret_cast<
 struct Dim { unsigned x; };
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 thread_local Dim threadIdx, blockIdx;
 Dim blockDim;
 float* g_smem;
@@ -281,14 +292,42 @@ int main(int argc, char** argv) {  // fwd|resolve|bwd N k r nb inputs... outputs
 }
 """
 
+BGJ_MAIN = r"""
+template <int KP> void flat(int batch, int k, char** files) {
+  auto C = readf(files[0], (size_t)batch * k * k);
+  std::vector<float> M(C.size(), NAN);
+  launch(batch, kFlatGroups * KP, 4 * KP * sizeof(float),
+         [&] { bgj_flat_kernel<KP>(C.data(), M.data(), k); });
+  writef(files[1], M);
+}
+int main(int argc, char** argv) {  // flat B k | blocked B 64, then input, output
+  const int batch = atoi(argv[2]), k = atoi(argv[3]);
+  if (!strcmp(argv[1], "flat")) {
+    if (k <= 32) flat<32>(batch, k, argv + 4);
+    else if (k <= 64) flat<64>(batch, k, argv + 4);
+    else flat<96>(batch, k, argv + 4);
+    return 0;
+  }
+  auto C = readf(argv[4], (size_t)batch * k * k);
+  std::vector<float> M(C.size(), NAN);
+  launch(batch, kBlockedThreads, sizeof(BlockedSmem), [&] { bgj_blocked64_kernel(C.data(), M.data()); });
+  writef(argv[5], M);
+  return 0;
+}
+"""
+
+SOURCES = {"thomas": ("thomas.cu", THOMAS_MAIN), "chol": ("chol_thomas.cu", CHOL_MAIN),
+           "bgj": ("bgj.cu", BGJ_MAIN)}
+
+
 def emulated_source(kind: str) -> str:
-    """thomas.cu or chol_thomas.cu as plain C++: the prelude's counterparts
-    of what ``staging.cuh`` gives the kernels, the source itself (its
-    launchers are host code it leaves out when KERNEL_EMULATION is
-    defined), and a main that runs its kernels on files."""
-    src = os.path.join(CSRC, "thomas.cu" if kind == "thomas" else "chol_thomas.cu")
-    main = THOMAS_MAIN if kind == "thomas" else CHOL_MAIN
-    return PRELUDE + f'#include "{src}"\n' + HELPERS + main
+    """thomas.cu, chol_thomas.cu or bgj.cu as plain C++: the prelude's
+    counterparts of what ``staging.cuh`` gives the kernels, the source
+    itself (its launchers are host code it leaves out when
+    KERNEL_EMULATION is defined), and a main that runs its kernels on
+    files."""
+    name, main = SOURCES[kind]
+    return PRELUDE + f'#include "{os.path.join(CSRC, name)}"\n' + HELPERS + main
 
 
 def build(kind: str, tmp: str) -> str:
@@ -343,24 +382,62 @@ def fma32(a, b, c):
     return torch.where(midpoint & (err * half > 0), other, r)
 
 
-def chain_product(A, B):
-    """P[a][c] = sum_m A[a][m] B[c][m] in float32, each entry one FMA chain
-    over m in index order from 0, as thomas.cu's ``product`` sums it."""
-    P = torch.zeros(A.shape[0], B.shape[0])
-    for m in range(A.shape[1]):
-        P = fma32(A[:, m:m + 1], B[:, m][None, :], P)
+def chain_product(X, Y):
+    """X @ Y in float32 for (..., n, l) X and (..., l, m) Y, each entry one
+    FMA chain over l in index order from 0, as the kernels' products sum
+    it."""
+    P = torch.zeros(X.shape[:-1] + Y.shape[-1:])
+    for m in range(X.shape[-1]):
+        P = fma32(X[..., :, m:m + 1], Y[..., m:m + 1, :], P)
     return P
+
+
+def ordered_flat_inverses(C):
+    """``bgj_flat_plain``'s tableau sweeps on (B, k, k) C with each update
+    one ``fma32``: what the kernels' Gauss-Jordan (gj.cuh) computes, on any
+    host."""
+    B, k, _ = C.shape
+    eye = torch.eye(k)
+    A, Binv = C, eye.expand(B, k, k)
+    for j in range(k):
+        col = A[:, :, j]
+        piv = col[:, j:j + 1]
+        rA, rB = A[:, j, :] / piv, Binv[:, j, :] / piv
+        f = -(col - eye[j])[:, :, None]
+        A, Binv = fma32(f, rA[:, None, :], A), fma32(f, rB[:, None, :], Binv)
+    return Binv
+
+
+def ordered_schur(C, inv_half):
+    """``cyclic_reduction._schur_inverse`` with each product summed by
+    ``chain_product``."""
+    h = C.shape[1] // 2
+    A, Bm, D = C[:, :h, :h], C[:, :h, h:], C[:, h:, h:]
+    Ai = inv_half(A)
+    W = chain_product(Bm.transpose(1, 2), Ai)
+    S = D - chain_product(W, Bm)
+    Si = inv_half(S)
+    V = chain_product(Ai, Bm)
+    VSi = chain_product(V, Si)
+    top = torch.cat([Ai + chain_product(VSi, W), -VSi], dim=2)
+    return torch.cat([top, torch.cat([-chain_product(Si, W), Si], dim=2)], dim=1)
+
+
+def ordered_blocked64(C):
+    """``bgj_blocked64_plain`` with each product an FMA chain in index order
+    and its leaves ``ordered_flat_inverses``: what bgj_blocked64 computes."""
+    return ordered_schur(C, lambda A: ordered_schur(A, ordered_flat_inverses))
 
 
 def ordered_inverses(D, Lp):
     """``thomas_fwd_plain``'s inverses M_i, C_i = D_i - L (M_{i-1} L^T), with
-    both coupling products summed by ``chain_product``: what thomas.cu
-    computes, on any host."""
+    both coupling products summed by ``chain_product`` and the inverses
+    ``ordered_flat_inverses``: what thomas.cu computes, on any host."""
     N, k, _ = D.shape
     M, Ms = torch.zeros(k, k), []
     for i in range(N):
-        T1 = chain_product(M, Lp[i])
-        M = bgj_flat_plain((D[i] - chain_product(Lp[i], T1.T))[None])[0]
+        T1 = chain_product(M, Lp[i].T)
+        M = ordered_flat_inverses((D[i] - chain_product(Lp[i], T1))[None])[0]
         Ms.append(M)
     return torch.stack(Ms)
 
@@ -379,6 +456,37 @@ def thomas_case(exe, tmp, N, k, r, nb=0):
     M = M.reshape(M_p.shape)
     return (torch.equal(M, ordered_inverses(D, Lp)), rel(M, M_p), rel(y.reshape(y_p.shape), y_p),
             rel(y2.reshape(y2_p.shape), y2_p), rel(x.reshape(x_p.shape), x_p))
+
+
+def spd_blocks(B, k, seed):
+    """chip_smoke.py's spd_blocks, on the CPU."""
+    rng = np.random.default_rng(seed)
+    C = rng.standard_normal((B, k, k))
+    return torch.tensor(np.einsum("bij,bkj->bik", C, C) + 2 * k * np.eye(k), dtype=torch.float32)
+
+
+def bgj_case(exe, tmp, B, k, blocked=0):
+    """bgj_flat (or, if blocked, bgj_blocked64) on B SPD blocks of k: (the
+    inverses equal to their index-order reference bit for bit, their rel
+    error against the plain version)."""
+    C = spd_blocks(B, k, seed=B + k)
+    (K,) = _call(exe, tmp, ("blocked" if blocked else "flat", B, k), [C], 1)
+    K = K.reshape(C.shape)
+    if blocked:
+        return torch.equal(K, ordered_blocked64(C)), rel(K, cr.bgj_blocked64_plain(C))
+    return torch.equal(K, ordered_flat_inverses(C)), rel(K, cr.bgj_flat_plain(C))
+
+
+def run_bgj(cases, tmp):
+    exe, ok = build("bgj", tmp), True
+    for case in cases:
+        same, err = bgj_case(exe, tmp, *case)
+        good = same and err <= TOL
+        ok &= good
+        name = "bgj_blocked64" if len(case) > 2 and case[2] else "bgj_flat"
+        print(f"{name} {case[:2]}: equal to the index-order reference: {same}; against the plain "
+              f"version {err:.3e}" + ("" if good else "  FAILED"), flush=True)
+    return ok
 
 
 def run_thomas(cases, tmp):
@@ -418,14 +526,15 @@ def run_chol(cases, tmp):
 
 
 def main(argv):
-    kinds = [argv[0]] if argv and argv[0] in ("thomas", "chol") else ["thomas", "chol"]
+    kinds = [argv[0]] if argv and argv[0] in SOURCES else list(SOURCES)
     shapes = [tuple(int(v) for v in a.split(",")) for a in argv[1:]] if len(kinds) == 1 else []
+    runs = {"thomas": (run_thomas, THOMAS_CASES), "chol": (run_chol, CHOL_CASES),
+            "bgj": (run_bgj, BGJ_CASES)}
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        if "thomas" in kinds:
-            ok &= run_thomas(shapes or THOMAS_CASES, tmp)
-        if "chol" in kinds:
-            ok &= run_chol(shapes or CHOL_CASES, tmp)
+        for kind in kinds:
+            run, cases = runs[kind]
+            ok &= run(shapes or cases, tmp)
     return 0 if ok else 1
 
 

@@ -1,17 +1,24 @@
-"""Where the block-Thomas kernels spend one stage, in cycles.
+"""Where the port's kernels spend their time, in cycles.
 
-    python3 tools/thomas_probe.py
+    python3 tools/thomas_probe.py [bgj] [thomas] [chol]
 
 Needs a CUDA device and nvcc; exits 2 without a device. Builds
-``sleqp_tpu_torch/kernels/csrc/thomas.cu`` and ``chol_thomas.cu`` with their
-``KERNEL_PROBE`` marks defined, so that thread 0 of block 0 records
-``clock64()`` at the phase boundaries of one stage, runs each kernel once at
-chip_smoke.py's shapes, checks it against its plain version, and prints one
-JSON object: the kernels' times by CUDA events, the cycles of each phase, and
-the latency of a few dependent instruction chains of one warp (FFMA, SHFL,
-LDS, MUFU.RSQ, division) and of a barrier of eight warps, measured the same
-way.
+``sleqp_tpu_torch/kernels/csrc/bgj.cu``, ``thomas.cu`` and ``chol_thomas.cu``
+(those named, all by default) with their ``KERNEL_PROBE`` marks defined, so
+that thread 0 of block 0 records ``clock64()`` at the phase boundaries of one
+stage (of one matrix for bgj.cu), runs each kernel at chip_smoke.py's
+shapes, checks it against its plain version, and prints one JSON object:
+the kernels' times by CUDA events, the cycles of each phase, the latency of
+a few dependent instruction chains of one warp (FFMA, SHFL, LDS, MUFU.RSQ,
+division) and of a barrier of eight warps, measured the same way, and the
+SM's rate of 16-byte shared loads by the distinct addresses a quarter warp
+reads (bgj_blocked64's products are loads and FMAs).
 
+- bgj.cu: ``bgj_flat`` at (B, k) = (781, 32) and (1, 32) with one, two and
+  four (the launcher's) warps a matrix, cycles per Gauss-Jordan sweep; and
+  ``bgj_blocked64`` at (1561, 64) and (1, 64), cycles per phase of block 0's
+  matrix. Times by CUDA events around a CUDA graph of 50 launches, so the
+  host's launch rate does not hide a kernel of a few microseconds;
 - thomas.cu at (N, k, r) = (160, 64, 1) and (1560, 32, 1): stage 50 of
   ``thomas_fwd`` with factor (and the Gauss-Jordan cycles per sweep) and
   without, and step 50 of ``thomas_bwd``;
@@ -36,6 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from sleqp_tpu_torch.kernels import _build  # noqa: E402
+from sleqp_tpu_torch.ops import cyclic_reduction as cr  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_tridiag as pt  # noqa: E402
 
@@ -82,10 +90,69 @@ extern "C" int chain_launch(float* out, long long* cyc, int n, int kind) {
   chain<<<1, kind == 5 ? 256 : 32>>>(out, cyc, n, kind);
   return static_cast<int>(cudaDeviceSynchronize());
 }
+// the rate of 16-byte shared loads: one 1024-thread block an SM, each lane
+// at offset lane_off[lane] (16-byte units) of one of eight rows
+__global__ void lds_rate(const int* lane_off, float* out, long long* cyc, int n) {
+  __shared__ float4 s[1024];
+  for (int i = threadIdx.x; i < 1024; i += blockDim.x) s[i] = make_float4(i, 1, 2, 3);
+  __syncthreads();
+  const int idx = lane_off[threadIdx.x & 31];
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  float4 acc = make_float4(0, 0, 0, 0);
+  const long long t0 = clock64();
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) {
+    float4 v;
+    const unsigned a = base + 16u * ((idx + (i & 7) * 72) & 1023);
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a));
+    acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  out[blockIdx.x * blockDim.x + threadIdx.x] = acc.x + acc.y + acc.z + acc.w;
+  if (threadIdx.x == 0 && blockIdx.x == 0) *cyc = t1 - t0;
+}
+extern "C" int lds_rate_launch(const int* lane_off, float* out, long long* cyc, int n) {
+  lds_rate<<<132, 1024>>>(lane_off, out, cyc, n);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
 """
+# lane -> 16-byte offset of the LDS.128 rate patterns: d distinct addresses
+# a quarter warp, rows 9 pieces apart (a leading dimension of 36 floats, as
+# bgj.cu's outer views)
+LDS_PATTERNS = {f"{d} distinct a quarter warp": [9 * (lane % d) for lane in range(32)]
+                for d in (8, 4, 2)}
+LDS_PATTERNS["1 distinct a quarter warp"] = [lane // 8 for lane in range(32)]
 # cycles of one dependent step, less the FADD (4.5 cycles) where the chain needs one
 LATENCY_KINDS = (("FFMA", 0.0), ("SHFL", 0.0), ("LDS", 0.0), ("MUFU.RSQ", 4.5), ("division", 4.5),
                  ("bar.sync of 8 warps", 0.0))
+
+
+# bgj_flat at kp = 32 in each layout: `rows` rows of one column a thread,
+# 32 / rows warps a matrix (the launcher's: 8)
+BGJ_LAYOUT_CU = r"""
+extern "C" int bgj_flat_rows_launch(const float* C, float* M, int batch, int k, int rows,
+                                    cudaStream_t stream) {
+  const size_t smem = 4 * 32 * sizeof(float);
+  if (rows == 32) bgj_flat_kernel<32, 1><<<batch, 32, smem, stream>>>(C, M, k);
+  if (rows == 16) bgj_flat_kernel<32, 2><<<batch, 64, smem, stream>>>(C, M, k);
+  if (rows == 8) bgj_flat_kernel<32, 4><<<batch, 128, smem, stream>>>(C, M, k);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+BGJ_FLAT_ROWS = {32: "one warp a matrix", 16: "two warps a matrix", 8: "four warps a matrix"}
+BGJ_FLAT_SHAPES = ((781, 32), (1, 32))
+BGJ_BLOCKED_SHAPES = ((1561, 64), (1, 64))
+# bgj_blocked64's marks (bgj.cu): 0 start, 1 input loaded, 2-7 and 10-15 the
+# phases of inverse32 (leaf, W' V', S', leaf, V'Si' and Si'W', TL'), 8 W and
+# V, 9 S, 16 V Si, Si W and the copy of Si, 17 Ai + (V Si) W
+BGJ_INNER = ("leaf A'", "W' V'", "S'", "leaf S'", "V'Si' Si'W'", "Ai' + V'Si'W'")
+BGJ_PHASES = (("load input", 0, 1),) + tuple(
+    (f"inverse32(A) {n}", 1 + i, 2 + i) for i, n in enumerate(BGJ_INNER)) + (
+    ("W = Bm^T Ai, V = Ai Bm", 7, 8), ("S = D - W Bm", 8, 9)) + tuple(
+    (f"inverse32(S) {n}", 9 + i, 10 + i) for i, n in enumerate(BGJ_INNER)) + (
+    ("V Si, Si W, copy Si", 15, 16), ("Ai + (V Si) W", 16, 17))
 
 
 def probed(name: str, steps) -> str:
@@ -150,6 +217,33 @@ def inputs(lead, k, r):
     return [torch.tensor(a, dtype=torch.float32, device="cuda") for a in (D, Lp, b)]
 
 
+def graph_ms(fn, reps=50):
+    """Device time of one fn() by CUDA events around a CUDA graph of
+    ``reps`` calls, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def spd_blocks(B, k):
+    """chip_smoke.py's spd_blocks for this shape (its seed)."""
+    rng = np.random.default_rng(B + k)
+    C = rng.standard_normal((B, k, k))
+    C = np.einsum("bij,bkj->bik", C, C) + 2 * k * np.eye(k)
+    return torch.tensor(C, dtype=torch.float32, device="cuda")
+
+
 def read_probes(lib):
     t = (ctypes.c_longlong * 64)()
     lib.probe_read.argtypes = [ctypes.c_void_p]
@@ -204,6 +298,49 @@ def probe_thomas(lib, out):
         out[f"thomas {(N, k, r)}"] = rec
 
 
+def probe_bgj(lib, out):
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    lib.bgj_flat_rows_launch.argtypes = [P_, P_, I_, I_, I_, P_]
+    lib.bgj_blocked64_launch.argtypes = [P_, P_, I_, P_]
+
+    def check(M, plain, what):
+        err = float((M - plain).abs().max() / plain.abs().max())
+        if err > 1e-4:
+            raise RuntimeError(f"probed {what} disagrees with its plain version: {err:.3e}")
+        return err
+
+    for B, k in BGJ_FLAT_SHAPES:
+        C = spd_blocks(B, k)
+        M = torch.empty_like(C)
+        plain = cr.bgj_flat_plain(C)
+        for rows, layout in BGJ_FLAT_ROWS.items():
+            def run(rows=rows):
+                stream = torch.cuda.current_stream().cuda_stream
+                _build.check_launch(lib.bgj_flat_rows_launch(C.data_ptr(), M.data_ptr(), B, k, rows,
+                                                             stream), "probe flat")
+
+            ms = graph_ms(run)
+            t = read_probes(lib)
+            out[f"bgj_flat {(B, k, k)} {layout}"] = {
+                "ms": ms, "gauss_jordan_cycles_per_sweep": (t[1] - t[0]) / k,
+                "rel_err": check(M, plain, "bgj_flat")}
+    for B, k in BGJ_BLOCKED_SHAPES:
+        C = spd_blocks(B, k)
+        M = torch.empty_like(C)
+
+        def run():
+            stream = torch.cuda.current_stream().cuda_stream
+            _build.check_launch(lib.bgj_blocked64_launch(C.data_ptr(), M.data_ptr(), B, stream),
+                                "probe blocked")
+
+        ms = graph_ms(run)
+        t = read_probes(lib)
+        out[f"bgj_blocked64 {(B, k, k)}"] = {
+            "ms": ms, "cycles": t[17] - t[0],
+            "cycles_per_phase": {name: t[b] - t[a] for name, a, b in BGJ_PHASES},
+            "rel_err": check(M, cr.bgj_blocked64_plain(C), "bgj_blocked64")}
+
+
 def probe_chol(lib, out):
     P, c, k, r = 1, 160, 64, 1
     D, Lp, b = inputs((P, c), k, r)
@@ -237,18 +374,23 @@ def probe_chol(lib, out):
         out[f"solve_step_{step}_cycles"] = dict(zip(names, [t[base + j + 1] - t[base + j] for j in range(6)]))
 
 
-def main():
+def main(argv):
     if not torch.cuda.is_available():
         print("thomas_probe: no CUDA device", file=sys.stderr)
         return 2
+    sections = argv or ["bgj", "thomas", "chol"]
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()}
     with tempfile.TemporaryDirectory() as tmp:
-        probe_thomas(build(probed("thomas.cu", (STAGE, STAGE + 1)), tmp, "thomas_probe"), out)
-        out["chol_thomas (1, 160, 64, 1)"] = chol = {}
-        probe_chol(build(probed("chol_thomas.cu", SOLVE_STEPS), tmp, "chol_probe"), chol)
+        if "bgj" in sections:
+            probe_bgj(build(probed("bgj.cu", (0, -1)) + BGJ_LAYOUT_CU, tmp, "bgj_probe"), out)
+        if "thomas" in sections:
+            probe_thomas(build(probed("thomas.cu", (STAGE, STAGE + 1)), tmp, "thomas_probe"), out)
+        if "chol" in sections:
+            out["chol_thomas (1, 160, 64, 1)"] = chol = {}
+            probe_chol(build(probed("chol_thomas.cu", SOLVE_STEPS), tmp, "chol_probe"), chol)
         lat = build(LATENCY_CU, tmp, "latency")
         o = torch.zeros(32, device="cuda")
         cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
@@ -259,9 +401,18 @@ def main():
                 _build.check_launch(lat.chain_launch(ctypes.c_void_p(o.data_ptr()),
                                                      ctypes.c_void_p(cyc.data_ptr()), n, kind), name)
             out["latency_cycles"][name] = int(cyc.item()) / n - fadd
+        out["lds128_cycles_an_sm_per_warp_instruction"] = {}
+        big = torch.zeros(132 * 1024, device="cuda")
+        for name, offsets in LDS_PATTERNS.items():
+            off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+            for _ in range(2):
+                _build.check_launch(lat.lds_rate_launch(
+                    ctypes.c_void_p(off.data_ptr()), ctypes.c_void_p(big.data_ptr()),
+                    ctypes.c_void_p(cyc.data_ptr()), n), name)
+            out["lds128_cycles_an_sm_per_warp_instruction"][name] = int(cyc.item()) / (n * 32)
     print(json.dumps(out))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
