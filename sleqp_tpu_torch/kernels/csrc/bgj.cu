@@ -53,12 +53,13 @@ namespace {
 
 constexpr int kFlatMaxK = 96;  // the widest padded width
 
-// A matrix at padded width kp lies in the G kp threads of one block, kp / G
-// rows of one column each.  G = 4 at every width: at kp = 32 it beat one
-// and two warps a matrix at 781 matrices and at one (tools/thomas_probe.py).  One matrix a block, synced by __syncthreads: a
-// named barrier with a computed id makes ptxas reserve all 16 barriers a
-// block, which caps the blocks an SM holds (781 matrices then took two
-// waves).
+// A matrix at padded width kp lies in the 4 kp threads of one block, kp / 4
+// rows of one column a thread, synced by __syncthreads.  At kp = 32 this
+// beat one and two warps a matrix at 781 matrices and at one
+// (tools/thomas_probe.py).  One matrix a block: a named barrier with a
+// computed id, which several matrices a block would need, makes ptxas
+// reserve all 16 barriers a block, which caps the blocks an SM holds (781
+// matrices then took two waves).
 constexpr int kFlatGroups = 4;
 
 struct BlockSync {
@@ -66,10 +67,10 @@ struct BlockSync {
 };
 
 // Dynamic shared memory: the pivot slots R and F, 4 kp floats.
-template <int KP, int G = kFlatGroups>
-__global__ void __launch_bounds__(G * KP)
+template <int KP>
+__global__ void __launch_bounds__(kFlatGroups * KP)
 bgj_flat_kernel(const float* __restrict__ C, float* __restrict__ M, int k) {
-  constexpr int RPT = KP / G;
+  constexpr int RPT = KP / kFlatGroups;
   float* R = reinterpret_cast<float*>(dynamic_smem());
   float* F = R + 2 * KP;
   const int c = threadIdx.x % KP, r0 = RPT * (threadIdx.x / KP);
@@ -81,11 +82,7 @@ bgj_flat_kernel(const float* __restrict__ C, float* __restrict__ M, int k) {
     w[u] = a < k && c < k ? C[off + a * k + c] : (a == c ? 1.0f : 0.0f);
   }
   KERNEL_PROBE(0, 0);
-  if constexpr (kWarpHeld<KP, RPT>) {
-    gauss_jordan<KP, RPT>(w, k, R, F, c, r0, WarpSync{});
-  } else {
-    gauss_jordan<KP, RPT>(w, k, R, F, c, r0, BlockSync{});
-  }
+  gauss_jordan<KP, RPT>(w, k, R, F, c, r0, BlockSync{});
   KERNEL_PROBE(0, 1);
 #pragma unroll
   for (int u = 0; u < RPT; ++u) {
@@ -375,10 +372,6 @@ int bgj_flat_launch(const float* C, float* M, int batch, int k,
 int bgj_blocked64_launch(const float* C, float* M, int batch,
                          cudaStream_t stream) {
   if (batch <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  // six blocks an SM need the largest shared-memory carveout; set once
-  static const int err =
-      prefer_shared(reinterpret_cast<const void*>(bgj_blocked64_kernel));
-  if (err != 0) return err;
   bgj_blocked64_kernel<<<batch, kBlockedThreads, sizeof(BlockedSmem), stream>>>(C, M);
   return static_cast<int>(cudaGetLastError());
 }

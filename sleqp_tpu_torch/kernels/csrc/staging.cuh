@@ -21,15 +21,6 @@ inline int set_smem(const void* kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
-// Ask for the largest shared-memory carveout of the SM for `kernel`, so
-// that as many of its blocks fit as its shared memory allows; returns the
-// cudaError_t as an int, 0 on success.
-inline int prefer_shared(const void* kernel) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      static_cast<int>(cudaSharedmemCarveoutMaxShared)));
-}
-
 // A mark at a phase boundary of stage `step`: nothing unless the build
 // defines it (tools/thomas_probe.py).
 #ifndef KERNEL_PROBE

@@ -87,15 +87,15 @@ def bgj_flat(C: Tensor) -> Tensor:
     Kernel ``bgj_flat`` in ``kernels/csrc/bgj.cu``.  Replaces
     ``sleqp_tpu/ops/cyclic_reduction.py::_bgj_kernel`` (pallas_call at
     :228).  The k sweeps run in place in registers (``kernels/csrc/gj.cuh``),
-    the block padded with the identity to 32, 64 or 96 rows and columns: at
-    32 one warp holds a matrix, a column a lane, two matrices a thread
-    block; at 64 and 96 four threads a column.  Device memory sees each
-    block read once and written once.  Bound: the 2 B k^2 * 4 bytes it moves
-    against the B k^3 float32 operations an SPD inverse needs at the least;
-    at the main path's largest batch, (781, 32, 32), the bytes bound it
-    (1.9 us at 3.35 TB/s against 0.4 us at 67 TFLOP/s).  Each matrix is a
-    chain of k dependent sweeps, so the latency of one chain rather than
-    either bound sets its time.
+    the block padded with the identity to 32, 64 or 96 rows and columns,
+    one matrix a thread block of four threads a column, each thread a
+    quarter of its column's rows, one ``__syncthreads`` a sweep.  Device
+    memory sees each block read once and written once.  Bound: the
+    2 B k^2 * 4 bytes it moves against the B k^3 float32 operations an SPD
+    inverse needs at the least; at the main path's largest batch,
+    (781, 32, 32), the bytes bound it (1.9 us at 3.35 TB/s against 0.4 us
+    at 67 TFLOP/s).  Each matrix is a chain of k dependent sweeps, so the
+    latency of one chain rather than either bound sets its time.
     """
     _check_blocks(C, "bgj_flat")
     if not _build.runs_kernel(C, "bgj_flat"):

@@ -1,6 +1,6 @@
 """Where the port's kernels spend their time, in cycles.
 
-    python3 tools/thomas_probe.py [bgj] [thomas] [chol]
+    python3 tools/thomas_probe.py [bgj] [thomas] [chol] [times] [--root DIR]
 
 Needs a CUDA device and nvcc; exits 2 without a device. Builds
 ``sleqp_tpu_torch/kernels/csrc/bgj.cu``, ``thomas.cu`` and ``chol_thomas.cu``
@@ -14,8 +14,10 @@ division) and of a barrier of eight warps, measured the same way, and the
 SM's rate of 16-byte shared loads by the distinct addresses a quarter warp
 reads (bgj_blocked64's products are loads and FMAs).
 
-- bgj.cu: ``bgj_flat`` at (B, k) = (781, 32) and (1, 32) with one, two and
-  four (the launcher's) warps a matrix, cycles per Gauss-Jordan sweep; and
+- bgj.cu: ``bgj_flat`` at (B, k) = (781, 32) and (1, 32) in the launcher's
+  layout (four warps a matrix) and, for comparison, in two layouts this tool
+  defines over the same Gauss-Jordan (``gj.cuh``): one and two warps a
+  matrix; cycles per Gauss-Jordan sweep; and
   ``bgj_blocked64`` at (1561, 64) and (1, 64), cycles per phase of block 0's
   matrix. Times by CUDA events around a CUDA graph of 50 launches, so the
   host's launch rate does not hide a kernel of a few microseconds;
@@ -26,7 +28,20 @@ reads (bgj_blocked64's products are loads and FMAs).
   factorization; step 50, a forward stage, and step 200, a backward stage,
   of the solve.
 
-The builds live in a temporary directory; the repository is not written.
+``times`` (only when named) times ``bgj_flat`` and ``bgj_blocked64`` through
+the package's wrappers at every batch the main paths launch them on (as
+chip_smoke.py: B1 at the 11 levels of one cyclic reduction at n = 1560,
+k = 32; B2 at (1561, 64) and at cr32's 8 levels at N = 160) by two timers:
+CUDA events around a CUDA graph of 20 calls (the kernel's own time), and
+around 20 calls launched back to back from the host (the wrapper's Python
+included where it is longer than the kernel). ``--root DIR`` takes the
+package and the sources from the checkout DIR instead of this one, so that
+one call can time a parent commit's kernels by the same code:
+
+    python3 tools/thomas_probe.py times --root .parent_checkout
+
+The builds live in a temporary directory (``times``: the package's own
+build directory); the repository is not written otherwise.
 """
 
 import ctypes
@@ -39,7 +54,19 @@ import tempfile
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _root(argv):
+    """The checkout probed: ``--root DIR`` (taken out of argv), else this one."""
+    if "--root" in argv:
+        i = argv.index("--root")
+        root = os.path.abspath(argv[i + 1])
+        del argv[i:i + 2]
+        return root
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+ROOT = _root(sys.argv)
 sys.path.insert(0, ROOT)
 
 from sleqp_tpu_torch.kernels import _build  # noqa: E402
@@ -129,15 +156,43 @@ LATENCY_KINDS = (("FFMA", 0.0), ("SHFL", 0.0), ("LDS", 0.0), ("MUFU.RSQ", 4.5), 
                  ("bar.sync of 8 warps", 0.0))
 
 
-# bgj_flat at kp = 32 in each layout: `rows` rows of one column a thread,
-# 32 / rows warps a matrix (the launcher's: 8)
+# bgj_flat at kp = 32 in each layout, `rows` rows of one column a thread:
+# 8 is the launcher's (four warps a matrix); 16 and 32 are bgj_flat_kernel's
+# body at two warps and one warp a matrix (one warp syncs by __syncwarp)
 BGJ_LAYOUT_CU = r"""
+template <int G>
+__global__ void __launch_bounds__(G * 32)
+flat_layout_kernel(const float* __restrict__ C, float* __restrict__ M, int k) {
+  constexpr int RPT = 32 / G;
+  float* R = reinterpret_cast<float*>(dynamic_smem());
+  float* F = R + 64;
+  const int c = threadIdx.x % 32, r0 = RPT * (threadIdx.x / 32);
+  const size_t off = static_cast<size_t>(blockIdx.x) * k * k;
+  float w[RPT];
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) {
+    const int a = r0 + u;
+    w[u] = a < k && c < k ? C[off + a * k + c] : (a == c ? 1.0f : 0.0f);
+  }
+  KERNEL_PROBE(0, 0);
+  if constexpr (G == 1) {
+    gauss_jordan<32, RPT>(w, k, R, F, c, r0, WarpSync{});
+  } else {
+    gauss_jordan<32, RPT>(w, k, R, F, c, r0, BlockSync{});
+  }
+  KERNEL_PROBE(0, 1);
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) {
+    const int a = r0 + u;
+    if (a < k && c < k) M[off + a * k + c] = w[u];
+  }
+}
 extern "C" int bgj_flat_rows_launch(const float* C, float* M, int batch, int k, int rows,
                                     cudaStream_t stream) {
   const size_t smem = 4 * 32 * sizeof(float);
-  if (rows == 32) bgj_flat_kernel<32, 1><<<batch, 32, smem, stream>>>(C, M, k);
-  if (rows == 16) bgj_flat_kernel<32, 2><<<batch, 64, smem, stream>>>(C, M, k);
-  if (rows == 8) bgj_flat_kernel<32, 4><<<batch, 128, smem, stream>>>(C, M, k);
+  if (rows == 8) return bgj_flat_launch(C, M, batch, k, stream);
+  if (rows == 16) flat_layout_kernel<2><<<batch, 64, smem, stream>>>(C, M, k);
+  if (rows == 32) flat_layout_kernel<1><<<batch, 32, smem, stream>>>(C, M, k);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -341,6 +396,44 @@ def probe_bgj(lib, out):
             "rel_err": check(M, cr.bgj_blocked64_plain(C), "bgj_blocked64")}
 
 
+def cr_batches(n):
+    """chip_smoke.py's cr_batches: the batches of the inverses of one
+    cyclic-reduction factorization of n blocks."""
+    batches = []
+    while n > 1:
+        n += 1 - n % 2
+        batches.append((n + 1) // 2)
+        n = (n - 1) // 2
+    return batches + [1]
+
+
+# (kernel, k, batches, what one pass of the batches is)
+BGJ_TIMED = (("bgj_flat", 32, cr_batches(1560), "mixed OCP iteration"),
+             ("bgj_blocked64", 64, [1561], "mixed OCP iteration"),
+             ("bgj_blocked64", 64, cr_batches(160), "cr32 factorization at N = 160"))
+
+
+def time_bgj(out):
+    """The ``times`` section: each batch's ms by both timers, their sums,
+    and each batch's rel Fro difference from the plain version."""
+    for name, k, batches, per in BGJ_TIMED:
+        fn, plain = getattr(cr, name), getattr(cr, name + "_plain")
+        rows = {}
+        for B in batches:
+            C = spd_blocks(B, k)
+            K, P = fn(C), plain(C)
+            rel = float(torch.linalg.matrix_norm((K - P).double()).max()
+                        / torch.linalg.matrix_norm(P.double()).max())
+            if rel > 1e-4:
+                raise RuntimeError(f"{name} ({B}, {k}) disagrees with its plain version: {rel:.3e}")
+            rows[B] = {"graph_ms": graph_ms(lambda: fn(C), 20),
+                       "host_ms": event_ms(lambda: fn(C), 20), "rel_fro": rel}
+        out[f"{name} k={k}, {per}"] = {
+            "by_batch": rows,
+            "sum_graph_ms": sum(r["graph_ms"] for r in rows.values()),
+            "sum_host_ms": sum(r["host_ms"] for r in rows.values())}
+
+
 def probe_chol(lib, out):
     P, c, k, r = 1, 160, 64, 1
     D, Lp, b = inputs((P, c), k, r)
@@ -382,7 +475,13 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()}
+        capture_output=True, text=True, check=True).stdout.strip(), "root": ROOT}
+    if "times" in sections:
+        time_bgj(out)
+        sections = [s for s in sections if s != "times"]
+    if not sections:
+        print(json.dumps(out))
+        return 0
     with tempfile.TemporaryDirectory() as tmp:
         if "bgj" in sections:
             probe_bgj(build(probed("bgj.cu", (0, -1)) + BGJ_LAYOUT_CU, tmp, "bgj_probe"), out)
