@@ -30,22 +30,34 @@ run from a checkout of the repository, on a machine with a CUDA device and
    assembled system as the library yardstick;
 6. the float64 OCP solve with ``tridiag_backend="pallas"`` (float32 cyclic
    reduction with float64 refinement) on the problem of phase 3;
-7. one JSON line describing each kernel, then the result line.
+7. the dense SLP-EQP solve (``solve``: the Cauchy LP by enumeration or the
+   simplex, the GLTR/CG Newton step, linesearches, penalty and trust-region
+   updates) on HS71 (``bench.py``), ``chainineq200`` and ``boxqp1000``
+   (``sleqp_tpu/harness/medium.py``, same seeds), each on the float64 and
+   the mixed route, on the card and through the port on the CPU: status,
+   objective against ``artifacts/suite_all_f64_r5.csv``, residuals, x
+   against the CPU run, the state on the card; iterations, simplex pivots,
+   ms per iteration and host reads (synchronizations) per iteration.  It
+   launches none of the six kernels;
+8. one JSON line describing each kernel, then the result line.
 
-Phases 3, 5 and 6 are the main paths: the launch counts are cleared just
-before each and read just after, and the kernels line reports their sum.
+Phases 3, 5 and 6 are the main paths of the kernels: the launch counts are
+cleared just before each and read just after, and the kernels line reports
+their sum.  Phase 7 is read the same way and must launch none of them.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device it exits with code 2 before any phase; outside
 a checkout of the repository the package import fails.
 """
 
+import dataclasses
 import functools
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -54,11 +66,14 @@ import torch  # noqa: E402
 
 from sleqp_tpu_torch import (  # noqa: E402
     BlockStructuredProblem,
+    Func,
+    Problem,
     Settings,
     Status,
     ocp_initial_state,
     ocp_perform_iteration,
     ocp_solve,
+    solve,
 )
 from sleqp_tpu_torch.kernels import _build  # noqa: E402
 from sleqp_tpu_torch.ops import cyclic_reduction as cr  # noqa: E402
@@ -350,6 +365,121 @@ def solve_summary(out):
         f"feas={float(out.feas_res):.3e} stat={float(out.stat_res):.3e} "
         f"obj={float(out.obj_val):.12g}"
     )
+
+
+# The dense solve's problems at the sizes the repository's medium suite runs
+# them, with the reference's objective and iteration counts from
+# artifacts/suite_all_{f64,mixed}_r5.csv (float64 route, mixed route).
+DENSE_REF = {
+    "hs71": (17.014017157, 6, 6),
+    "chainineq200": (8.0110686546, 24, 24),
+    "boxqp1000": (41.215701999, 4, 11),
+}
+
+
+def dense_problem(name, device):
+    """(Problem, x0) of bench.py's HS71, or of harness/medium.py's
+    chainineq200 (default_rng(41)) or boxqp1000 (default_rng(7))."""
+    if name == "hs71":
+        def obj(x):
+            return x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2]
+
+        def cons(x):
+            return torch.stack([x[0] * x[1] * x[2] * x[3], x @ x])
+
+        problem = Problem(Func(obj, 4, cons=cons, num_cons=2), var_lb=1.0, var_ub=5.0,
+                          general_lb=[25.0, 40.0], general_ub=[float("inf"), 40.0], device=device)
+        return problem, np.array([1.0, 5.0, 5.0, 1.0])
+    if name == "chainineq200":
+        n = 200
+        t = torch.tensor(np.cumsum(np.random.default_rng(41).standard_normal(n)) * 0.2, device=device)
+        func = Func(lambda x: 0.5 * ((x - t.to(x)) ** 2).sum(), n,
+                    cons=lambda x: x[1:] - x[:-1], num_cons=n - 1)
+        return Problem(func, general_lb=-0.05, general_ub=0.05, device=device), np.zeros(n)
+    n = 1000
+    c = torch.tensor(np.random.default_rng(7).uniform(-0.5, 1.5, n), device=device)
+    func = Func(lambda x: ((x - c.to(x)) ** 2).sum(), n, psd_hessian=True)
+    return Problem(func, var_lb=0.0, var_ub=1.0, device=device), np.full(n, 0.5)
+
+
+def tensors_of(obj):
+    """Every tensor of a (nested) dataclass state."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, tuple):
+        return [t for v in obj for t in tensors_of(v)]
+    return [t for f in dataclasses.fields(obj) for t in tensors_of(getattr(obj, f.name))]
+
+
+def timed_solve(problem, settings, x0, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = solve(problem, settings, x0, max_iterations=200, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def host_reads(problem, settings, x0):
+    """Synchronizations of the host with the card over one solve, as
+    torch.cuda.set_sync_debug_mode counts them."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = solve(problem, settings, x0, max_iterations=200, device="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught), out
+
+
+def dense_phase(log):
+    """Phase 7: the dense SLP-EQP solve on the card and on the CPU."""
+    # the rule the pivoting rests on, on the card: argmax/argmin pick the
+    # first index of a tie and take NaN as the extreme value, as on the CPU
+    for values in ([1.0, 3.0, 3.0, 2.0], [float("nan"), 1.0, float("nan")],
+                   [2.0, float("nan"), 5.0], [0.0, 0.0, 0.0]):
+        v = torch.tensor(values, dtype=torch.float64)
+        for fn in (torch.argmax, torch.argmin):
+            check(int(fn(v.cuda())) == int(fn(v)), f"{fn.__name__} of {values} differs on the card")
+    # set-up on first use (cuSOLVER/cuBLAS handles), uncounted
+    warm, wx0 = dense_problem("hs71", "cuda")
+    solve(warm, Settings(), wx0, device="cuda")
+    for name, (f_ref, it64, itmix) in DENSE_REF.items():
+        gpu_problem, x0 = dense_problem(name, "cuda")
+        cpu_problem, _ = dense_problem(name, "cpu")
+        reads, _ = host_reads(gpu_problem, Settings(), x0)
+        for route, it_ref in (("same", it64), ("float32", itmix)):
+            settings = Settings(compute_dtype=route)
+            out, gpu_s = timed_solve(gpu_problem, settings, x0, "cuda")
+            ref, cpu_s = timed_solve(cpu_problem, settings, x0, "cpu")
+            iters, cpu_iters = int(out.iteration), int(ref.iteration)
+            obj = float(out.it.obj_val)
+            dx = float((out.it.x.cpu() - ref.it.x).abs().max())
+            line = (f"dense {name} ({'float64' if route == 'same' else 'mixed'}): "
+                    f"status={Status(int(out.status)).name} obj={obj:.11g} "
+                    f"(r5 CSV {f_ref}); feas={float(out.feas_res):.3e} "
+                    f"slack={float(out.slack_res):.3e} stat={float(out.stat_res):.3e}; "
+                    f"iterations card {iters}, CPU {cpu_iters}, CSV {it_ref}; "
+                    f"simplex pivots {int(out.lp_iterations)}; card {gpu_s:.3f} s per solve, "
+                    f"{1e3 * gpu_s / max(iters, 1):.2f} ms per iteration; CPU {cpu_s:.3f} s, "
+                    f"{1e3 * cpu_s / max(cpu_iters, 1):.2f} ms per iteration; "
+                    f"max |x_card - x_cpu| {dx:.3e}")
+            if route == "same":
+                line += f"; host reads {reads} ({reads / max(iters, 1):.1f} per iteration)"
+            log(7, line)
+            check(int(out.status) == Status.OPTIMAL, f"dense {name} {route}: not OPTIMAL")
+            check(abs(obj - f_ref) <= 1e-6 * abs(f_ref),
+                  f"dense {name} {route}: objective {obj} against {f_ref}")
+            s = Settings()
+            check(float(out.feas_res) <= s.feas_tol and float(out.slack_res) < s.slack_tol
+                  and float(out.stat_res) < s.stat_tol, f"dense {name} {route}: residuals")
+            check(int(ref.status) == int(out.status), f"dense {name} {route}: CPU status differs")
+            if route == "same":
+                check(dx <= 1e-6, f"dense {name}: x differs from the CPU run by {dx:.3e}")
+            check(all(t.device.type == "cuda" for t in tensors_of(out)),
+                  f"dense {name} {route}: a tensor of the final state is not on the card")
 
 
 def main():
@@ -685,14 +815,21 @@ def main():
     check(launches_pal["bgj_flat"] >= per_solve * pal_iters,
           f"bgj_flat not launched {per_solve} times per iteration on the pallas route")
 
-    # -- phase 7: report ---------------------------------------------------
+    # -- phase 7: the dense SLP-EQP solve (no kernel of B1-B6) --------------
+    clear_counts()
+    dense_phase(log)
+    launches_dense = read_counts()
+    check(not any(launches_dense.values()),
+          f"the dense solve launched a kernel of B1-B6: {launches_dense}")
+
+    # -- phase 8: report ---------------------------------------------------
     kernels = [
         dict(rec, launches=launches[name] + launches_kkt[name] + launches_pal[name])
         for name, rec in results.items()
     ]
     check(len(kernels) == 6 and all(r["launches"] > 0 for r in kernels),
           f"a kernel was not launched on the main paths: {kernels}")
-    log(7, "all checks passed")
+    log(8, "all checks passed")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

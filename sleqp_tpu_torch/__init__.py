@@ -1,10 +1,13 @@
 """sleqp_tpu_torch: the PyTorch/CUDA port of sleqp_tpu.
 
-It holds the structured (OCP) solve and the mixed-precision
-block-tridiagonal solve layer (``ops/``).  The OCP's float32 route runs the
-stage-Hessian and cyclic-reduction inverses through hand-written CUDA
-kernels (``kernels/csrc/bgj.cu``); its float64 route is the oracle.  The
-block-tridiagonal backends run the streaming block Thomas
+It holds two solves.  The general dense SLP-EQP solve (``Func``,
+``Problem``, ``solve``; ``problem_solver.py``) runs the reference's
+iteration: a Cauchy LP by vertex enumeration or the revised simplex, a
+GLTR or projected-CG Newton step, linesearches, and penalty and
+trust-region updates, on ``torch.linalg`` factorizations.  The structured
+(OCP) solve runs its float32 route through hand-written CUDA kernels
+(``kernels/csrc/bgj.cu``), and the mixed-precision block-tridiagonal solve
+layer (``ops/``) runs the streaming block Thomas
 (``kernels/csrc/thomas.cu``) and the Cholesky block Thomas
 (``kernels/csrc/chol_thomas.cu``).  The package imports ``torch`` and
 ``numpy`` and nothing of JAX or of ``sleqp_tpu``.  Entry points run on
@@ -18,15 +21,25 @@ from .ocp import (
     ocp_perform_iteration,
     ocp_solve,
 )
-from .settings import Settings
+from .problem import Func, Problem
+from .problem_solver import SolverState, initial_state, perform_iteration, solve
+from .settings import Settings, read_settings_file, read_settings_string
 from .types import Status
 
 __all__ = [
     "BlockStructuredProblem",
+    "Func",
     "OCPState",
+    "Problem",
     "Settings",
+    "SolverState",
     "Status",
+    "initial_state",
     "ocp_initial_state",
     "ocp_perform_iteration",
     "ocp_solve",
+    "perform_iteration",
+    "read_settings_file",
+    "read_settings_string",
+    "solve",
 ]

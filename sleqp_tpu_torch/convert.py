@@ -2,7 +2,9 @@
 
 The parity tests build one problem and one starting state from numpy
 arrays and hand them to both the JAX package and this one; these helpers
-are the port's side of that exchange.
+are the port's side of that exchange: for the structured (OCP) solve its
+problem arrays and ``OCPState``, for the dense SLP-EQP solve its
+``ProblemData``, ``Iterate`` and ``SolverState``.
 """
 
 from __future__ import annotations
@@ -13,7 +15,14 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from .ocp import OCPState, resolve_device
+from .cauchy import CauchyBasis
+from .device import resolve_device
+from .iterate import Iterate
+from .measure import Measure
+from .ocp import OCPState
+from .problem_solver import SolverState
+from .quasi_newton import QNPrev, QNState
+from .step_rule import StepRuleState
 
 _PROBLEM_ARRAYS = ("x0", "u_lb", "u_ub", "x_lb", "x_ub")
 
@@ -55,3 +64,52 @@ def state_from_numpy(arrays: Mapping[str, Any], device: Any = None) -> OCPState:
     return OCPState(
         **{n: torch.as_tensor(np.array(arrays[n]), device=dev) for n in names}
     )
+
+
+# ---- the dense SLP-EQP solve's problem data, iterates and states ------------
+
+# the dataclass type of each nested field, by the class that holds it
+_NESTED = {
+    SolverState: {"it": Iterate, "basis": CauchyBasis, "qn": QNState, "qn_prev": QNPrev,
+                  "step_rule": StepRuleState, "measure": Measure},
+}
+
+
+def _field(src: Any, name: str):
+    return src[name] if isinstance(src, Mapping) else getattr(src, name)
+
+
+def _from_tree(cls, src: Any, dev: torch.device):
+    nested = _NESTED.get(cls, {})
+    out = {}
+    for f in dataclasses.fields(cls):
+        value = _field(src, f.name)
+        sub = nested.get(f.name)
+        if sub is None:
+            out[f.name] = torch.as_tensor(np.array(value), device=dev)
+        elif isinstance(value, (tuple, list)):  # per-Hessian-block QN states
+            out[f.name] = tuple(_from_tree(sub, v, dev) for v in value)
+        else:
+            out[f.name] = _from_tree(sub, value, dev)
+    return cls(**out)
+
+
+def tree_from_numpy(cls, src: Any, device: Any = None):
+    """One of the port's ``ProblemData``, ``Iterate`` or ``SolverState``
+    (``cls``) from numpy arrays: ``src`` is the JAX package's object of the
+    same name with its leaves turned into numpy (``jax.tree_util.tree_map(
+    np.asarray, state)``), or a nested mapping keyed by field name as
+    ``tree_to_numpy`` gives.  Dtypes and shapes are kept.  ``device=None``
+    means CUDA."""
+    return _from_tree(cls, src, resolve_device(device))
+
+
+def tree_to_numpy(obj: Any):
+    """Every field of a port dataclass (nested ones included) as numpy
+    arrays, in nested dicts keyed by field name; a tuple of states stays a
+    tuple."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, tuple):
+        return tuple(tree_to_numpy(v) for v in obj)
+    return {f.name: tree_to_numpy(getattr(obj, f.name)) for f in dataclasses.fields(obj)}

@@ -1,0 +1,181 @@
+"""Linesearches on the piecewise-linear penalty model.
+
+Port of ``sleqp_tpu/linesearch.py`` (reference src/main/linesearch.c):
+
+* ``cauchy_linesearch`` (linesearch.c:153-315) backtracks the LP step
+  against the quadratic penalty model;
+* ``trial_linesearch`` (linesearch.c:318-640, APPROX) finds the blending
+  ``alpha`` of the Cauchy->Newton segment by Armijo backtracking on the
+  quadratic merit;
+* ``trial_linesearch_exact`` (EXACT) minimizes the piecewise quadratic
+  merit over a fixed candidate set on the segment.
+
+Model values come from cached direction products; each backtracking
+``lax.while_loop`` of the reference is a Python loop that reads one flag
+per step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .iterate import Iterate, total_violation, violated_cons_multipliers
+from .merit import Direction, blend
+from .problem import ProblemData
+from .types import INF_THRESHOLD
+
+Tensor = torch.Tensor
+
+_MAX_IT = 200  # delta/alpha shrink past 1e-60 with tau=.5; 200 is ample
+
+
+def cauchy_linesearch(data: ProblemData, it: Iterate, direction: Direction, penalty: Tensor,
+                      trust_radius: Tensor, tau: float, eta: float, eps: float):
+    """Scale the Cauchy direction; returns (direction, full_step, quad_merit)."""
+    exact_violation = total_violation(data, it.cons_val)
+    hess_bilinear = torch.dot(direction.primal, direction.hess)
+
+    norm = torch.linalg.norm(direction.primal)
+    delta0 = torch.clamp(trust_radius / torch.where(norm > 0.0, norm, 1.0), max=1.0)
+
+    delta = delta0
+    count = 0
+    while True:
+        lin_viol = total_violation(data, it.cons_val + delta * direction.cons_jac_dot)
+        lhs = (penalty * (exact_violation - lin_viol) - delta * direction.obj_dot) * (1.0 - eta)
+        ok = lhs >= 0.5 * delta * delta * hess_bilinear
+        delta_next = torch.where(ok, delta, delta * tau)
+        vanished = delta_next <= eps
+        delta = torch.where(vanished, 0.0, delta_next)
+        if bool(ok | vanished) or count >= _MAX_IT:
+            break
+        count += 1
+
+    scaled = direction.scale(delta)
+    lin_viol = total_violation(data, it.cons_val + scaled.cons_jac_dot)
+    quad_merit = (it.obj_val + scaled.obj_dot + penalty * lin_viol
+                  + 0.5 * torch.dot(scaled.primal, scaled.hess))
+    return scaled, delta >= delta0, quad_merit
+
+
+def max_step_length(point: Tensor, direction: Tensor, lb: Tensor, ub: Tensor) -> Tensor:
+    """Largest alpha in [0,1] with point + alpha*direction in [lb,ub]
+    (util.c:127-239 sleqp_max_step_length)."""
+    pos = direction > 0.0
+    neg = direction < 0.0
+    safe_dir = torch.where(direction != 0.0, direction, 1.0)
+    t_up = torch.where(pos & (ub < INF_THRESHOLD), (ub - point) / safe_dir, torch.inf)
+    t_low = torch.where(neg & (lb > -INF_THRESHOLD), (lb - point) / safe_dir, torch.inf)
+    inf = torch.full((), torch.inf, dtype=point.dtype, device=point.device)
+    t = torch.minimum(torch.cat([t_up, inf[None]]).amin(), torch.cat([t_low, inf[None]]).amin())
+    return torch.clamp(t, 0.0, 1.0)
+
+
+def _segment_products(cauchy_dir: Direction, newton_dir: Direction):
+    cc = torch.dot(cauchy_dir.primal, cauchy_dir.hess)
+    cn = torch.dot(cauchy_dir.primal, newton_dir.hess)
+    nn = torch.dot(newton_dir.primal, newton_dir.hess)
+    return cc, cn, nn
+
+
+def trial_linesearch(data: ProblemData, it: Iterate, cauchy_dir: Direction,
+                     cauchy_quad_merit: Tensor, newton_dir: Direction, penalty: Tensor,
+                     tau: float, eta: float, cutoff: float):
+    """Blend Cauchy -> Newton (APPROX rule).  Returns (trial_direction,
+    step length alpha, trial quadratic merit); alpha = 0 reproduces the
+    Cauchy direction."""
+    cc, cn, nn = _segment_products(cauchy_dir, newton_dir)
+
+    cauchy_newton = newton_dir.primal - cauchy_dir.primal
+    cauchy_point = it.x + cauchy_dir.primal
+    alpha0 = max_step_length(cauchy_point, cauchy_newton, data.var_lb, data.var_ub)
+
+    # directional derivative of the quadratic merit along Cauchy->Newton
+    viol_mult = violated_cons_multipliers(data, it.cons_val + cauchy_dir.cons_jac_dot)
+    grad_cauchy = cauchy_dir.obj_dot + torch.dot(viol_mult, cauchy_dir.cons_jac_dot) + cc
+    grad_newton = newton_dir.obj_dot + torch.dot(viol_mult, newton_dir.cons_jac_dot) + cn
+    merit_grad_product = grad_newton - grad_cauchy
+
+    def quad_merit(alpha):
+        lin = it.obj_val + (1.0 - alpha) * cauchy_dir.obj_dot + alpha * newton_dir.obj_dot
+        combined = (it.cons_val + (1.0 - alpha) * cauchy_dir.cons_jac_dot
+                    + alpha * newton_dir.cons_jac_dot)
+        lin = lin + penalty * total_violation(data, combined)
+        quad_term = 0.5 * (1.0 - alpha) ** 2 * cc + alpha * ((1.0 - alpha) * cn + 0.5 * alpha * nn)
+        return lin + quad_term
+
+    start_vanished = alpha0 <= cutoff
+    alpha = torch.where(start_vanished, 0.0, alpha0)
+    done = bool(start_vanished)
+    count = 0
+    while not done:
+        ok = quad_merit(alpha) <= cauchy_quad_merit + eta * alpha * merit_grad_product
+        alpha_next = torch.where(ok, alpha, alpha * tau)
+        vanished = alpha_next <= cutoff
+        alpha = torch.where(vanished, 0.0, alpha_next)
+        done = bool(ok | vanished) or count >= _MAX_IT
+        count += 1
+
+    trial = blend(cauchy_dir, newton_dir, alpha)
+    trial_merit = torch.where(alpha > 0.0, quad_merit(alpha), cauchy_quad_merit)
+    return trial, alpha, trial_merit
+
+
+def trial_linesearch_exact(data: ProblemData, it: Iterate, cauchy_dir: Direction,
+                           cauchy_quad_merit: Tensor, newton_dir: Direction, penalty: Tensor,
+                           cutoff: float):
+    """EXACT variant (linesearch.c:794-): the global minimizer of the
+    piecewise quadratic merit phi(alpha) on the Cauchy->Newton segment,
+    taken over all bound-crossing breakpoints plus the per-segment
+    stationary points clipped into [0, alpha_max]."""
+    cc, cn, nn = _segment_products(cauchy_dir, newton_dir)
+
+    cauchy_newton = newton_dir.primal - cauchy_dir.primal
+    alpha_max = max_step_length(it.x + cauchy_dir.primal, cauchy_newton, data.var_lb,
+                                data.var_ub)
+
+    # linearized constraint values v(alpha) = a + alpha * b
+    a = it.cons_val + cauchy_dir.cons_jac_dot
+    b = newton_dir.cons_jac_dot - cauchy_dir.cons_jac_dot
+
+    # quadratic part q(alpha) with q'(alpha) = q1 + q2*alpha
+    q1 = (newton_dir.obj_dot - cauchy_dir.obj_dot) - cc + cn
+    q2 = cc - 2.0 * cn + nn
+
+    safe_b = torch.where(b != 0.0, b, 1.0)
+    cross_ub = torch.where((b != 0.0) & (data.cons_ub < INF_THRESHOLD),
+                           (data.cons_ub - a) / safe_b, -1.0)
+    cross_lb = torch.where((b != 0.0) & (data.cons_lb > -INF_THRESHOLD),
+                           (data.cons_lb - a) / safe_b, -1.0)
+    zero = torch.zeros((1,), dtype=a.dtype, device=a.device)
+    breaks = torch.cat([zero, alpha_max.reshape(1), cross_ub, cross_lb])
+    breaks = torch.minimum(torch.maximum(breaks, zero), alpha_max)
+    breaks = torch.sort(breaks).values
+
+    # per-segment stationary candidates: the midpoints give the active
+    # penalty-slope regime; solve q1 + q2*alpha + pen_slope = 0 there
+    lo, hi = breaks[:-1], breaks[1:]
+    mids = 0.5 * (lo + hi)
+    v = a[None, :] + mids[:, None] * b[None, :]
+    slopes = penalty * (torch.where(v > data.cons_ub, b, 0.0)
+                        - torch.where(v < data.cons_lb, b, 0.0)).sum(dim=1)
+    safe_q2 = torch.where(q2 != 0.0, q2, 1.0)
+    stationary = torch.where(q2 > 0.0, -(q1 + slopes) / safe_q2, mids)
+    stationary = torch.minimum(torch.maximum(stationary, lo), hi)
+
+    alphas = torch.cat([breaks, stationary])
+    lin = it.obj_val + (1.0 - alphas) * cauchy_dir.obj_dot + alphas * newton_dir.obj_dot
+    v = a[None, :] + alphas[:, None] * b[None, :]
+    viol = (torch.clamp(v - data.cons_ub, min=0.0) + torch.clamp(data.cons_lb - v, min=0.0)).sum(dim=1)
+    quad = 0.5 * (1.0 - alphas) ** 2 * cc + alphas * ((1.0 - alphas) * cn + 0.5 * alphas * nn)
+    values = lin + penalty * viol + quad
+    best = torch.argmin(values).reshape(1)
+    alpha = alphas.index_select(0, best)[0]
+    best_value = values.index_select(0, best)[0]
+
+    # keep the Cauchy point when no candidate improves on it
+    use_cauchy = (best_value >= cauchy_quad_merit) | (alpha <= cutoff)
+    alpha = torch.where(use_cauchy, 0.0, alpha)
+
+    trial = blend(cauchy_dir, newton_dir, alpha)
+    return trial, alpha, torch.where(use_cauchy, cauchy_quad_merit, best_value)

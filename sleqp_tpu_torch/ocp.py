@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import re
 from typing import Any, Callable, Optional
 
 import torch
@@ -51,8 +50,9 @@ from .kernels._build import require_full_fp32
 from .ops.block_tridiag import block_tridiag_solve, cholesky_or_nan, spike_block_tridiag_solve
 from .ops.cyclic_reduction import batched_gj_inverse, cr_factor, cr_resolve
 from .ops.pallas_tridiag import _spike_chunks, block_tridiag_matvec, block_tridiag_solve_mp
+from .device import resolve_device
 from .settings import Settings
-from .types import Status
+from .types import DTYPE_MISMATCH, Status
 
 Tensor = torch.Tensor
 
@@ -70,22 +70,6 @@ _MIXED_DTYPE_HINT = (
     "float64 tensor computes in float64 or fails, and the float32 route "
     "never runs it in float64"
 )
-# what PyTorch's kernels say when their operands' dtypes differ
-_DTYPE_MISMATCH = re.compile(r"dtype|scalar type", re.IGNORECASE)
-
-
-def resolve_device(device: Any = None) -> torch.device:
-    """The device an entry point runs on: ``None`` means ``"cuda"``.
-    Raises when CUDA is asked for and no CUDA device is present."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on the CPU"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def _zero_cost(x: Tensor) -> Tensor:
@@ -279,7 +263,7 @@ class BlockStructuredProblem:
         try:
             outs = [self.dynamics(x, u, t), self.stage_cost(x, u, t), self.final_cost(x)]
         except RuntimeError as exc:
-            if not _DTYPE_MISMATCH.search(str(exc)):
+            if not DTYPE_MISMATCH.search(str(exc)):
                 raise
             raise TypeError(_MIXED_DTYPE_HINT) from exc
         if any(torch.as_tensor(o).dtype != z.dtype for o in outs):

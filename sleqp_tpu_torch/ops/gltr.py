@@ -1,0 +1,187 @@
+"""GLTR trust-region solver: projected Lanczos + tridiagonal Moré-Sorensen.
+
+Port of ``sleqp_tpu/ops/gltr.py`` (the reference's trlib replacement):
+solve
+
+    min  g^T d + 0.5 d^T H d   s.t.  A_W d = 0,  ||d|| <= radius
+
+for a possibly indefinite H.  A projected Lanczos recursion builds an
+orthonormal basis V of the Krylov space in null(A_W) with tridiagonal
+T = V^T H V; each step solves the reduced problem
+
+    min  gamma0 * e1^T h + 0.5 h^T T h   s.t.  ||h|| <= radius
+
+by a safeguarded Newton iteration on the secular equation
+``1/||h(lam)|| - 1/radius = 0`` with factorizations of T + lam I, then
+d = V h.
+
+The Lanczos basis is a (K, n) buffer as in the reference.  The reference
+factors the padded K x K tridiagonal by LDL^T scans (``lax.scan``); its
+padding rows decouple exactly (unit diagonal, zero coupling and right-hand
+side), so the port factors the leading k x k block of the current Lanczos
+step, whose size the host knows, with one ``torch.linalg.cholesky_ex``:
+the same factorization (C = L D^1/2), a few launches instead of O(k)
+sequential steps per Newton iteration.  Positive definiteness is the
+factorization's success, as ``all(d > 0)`` is in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .kkt import AugJac, project_nullspace
+from .tr_cg import TRResult
+
+Tensor = torch.Tensor
+
+_MS_WARM_ITERS = 12  # Newton iterations when warm-started
+
+
+def _tridiag_solve_at(T: Tensor, rhs: Tensor, lam: Tensor):
+    """h = (T + lam I)^{-1} rhs (0 when not positive definite), the
+    Moré-Sorensen denominator ||C^{-1} h||^2 with C the Cholesky factor of
+    T + lam I, and the positive-definiteness flag."""
+    k = T.shape[0]
+    C, info = torch.linalg.cholesky_ex(T + lam * torch.eye(k, dtype=T.dtype, device=T.device))
+    pd = info == 0
+    h = torch.cholesky_solve(rhs[:, None], C, upper=False)
+    wnorm2 = torch.linalg.solve_triangular(C, h, upper=False).square().sum()
+    h = torch.where(pd, h[:, 0], 0.0)
+    return h, wnorm2, pd
+
+
+def _tridiag_tr_solve(
+    alphas: Tensor,  # (K,) diagonal
+    betas: Tensor,  # (K,) off-diagonal; betas[0] unused
+    gamma0: Tensor,  # ||P g||
+    radius: Tensor,
+    k: int,  # current active dimension (1..K)
+    lam_warm: Tensor | None = None,  # warm-start multiplier from the last call
+    newton_iters: int = 25,
+):
+    """Moré-Sorensen on the active k x k block of the tridiagonal."""
+    K = alphas.shape[0]
+    dtype, dev = alphas.dtype, alphas.device
+    tiny = torch.finfo(dtype).tiny
+    a = alphas[:k]
+    b = betas[1:k]
+    T = torch.diag(a) + torch.diag(b, 1) + torch.diag(b, -1)
+    rhs = torch.zeros((k,), dtype=dtype, device=dev)
+    rhs[0] = -gamma0
+
+    # Gershgorin lower bound on the eigenvalues of the active block
+    zero = torch.zeros((1,), dtype=dtype, device=dev)
+    gersh = a - torch.cat([zero, b]).abs() - torch.cat([b, zero]).abs()
+    lam_lo = torch.clamp(-gersh.amin(), min=0.0)
+
+    # interior test at lam = 0
+    h0, _, pd0 = _tridiag_solve_at(T, rhs, torch.zeros((), dtype=dtype, device=dev))
+    interior = pd0 & (torch.linalg.norm(h0) <= radius)
+
+    # The Gershgorin start is positive definite; Newton may move below it
+    # (the bound is conservative) and failures bisect back up.  A warm
+    # multiplier from the previous, one smaller, tridiagonal starts closer.
+    lam = lam_lo + 1e-12
+    last_ok = lam_lo + 1e-12
+    if lam_warm is not None:
+        lam = torch.maximum(lam_warm, lam)
+    for _ in range(newton_iters):
+        h, wnorm2, ok = _tridiag_solve_at(T, rhs, lam)
+        norm = torch.clamp(torch.linalg.norm(h), min=tiny)
+        wnorm2 = torch.clamp(wnorm2, min=tiny)
+        dlam = (norm * norm / wnorm2) * (norm - radius) / radius
+        cand = torch.clamp(lam + dlam, min=0.0)
+        lam, last_ok = torch.where(ok, cand, 0.5 * (lam + last_ok)), torch.where(ok, lam, last_ok)
+    h_b, _, _ = _tridiag_solve_at(T, rhs, lam)
+    # exact boundary scaling guard
+    norm_b = torch.linalg.norm(h_b)
+    h_b = h_b * torch.where(norm_b > radius, radius / torch.clamp(norm_b, min=tiny), 1.0)
+
+    h = torch.zeros((K,), dtype=dtype, device=dev)
+    h[:k] = torch.where(interior, h0, h_b)
+    return h, torch.where(interior, 0.0, lam), interior
+
+
+def gltr(
+    hess_prod: Callable[[Tensor], Tensor],
+    aug_jac: AugJac,
+    gradient: Tensor,
+    radius: Tensor,
+    max_iterations: int,
+    rel_tol: float = 1e-8,
+    p0: Tensor | None = None,
+) -> TRResult:
+    """GLTR solve; interface as ``steihaug_cg``.  ``p0`` optionally supplies
+    the initial nullspace projection of the gradient (the mixed-precision
+    caller computes it in float64: near convergence ``P g`` cancels
+    catastrophically)."""
+    n = gradient.shape[0]
+    dtype, dev = gradient.dtype, gradient.device
+    radius = torch.as_tensor(radius, dtype=dtype, device=dev)
+    K = min(max(int(max_iterations), 1), n + 1)
+    finfo = torch.finfo(dtype)
+
+    p0 = project_nullspace(aug_jac, gradient) if p0 is None else p0.to(dtype)
+    gamma0 = torch.linalg.norm(p0)
+    eps = float(finfo.eps)
+    # relative termination (trlib semantics) with a denormal-scale floor
+    tol = torch.clamp(max(rel_tol, 10.0 * eps) * gamma0, min=100.0 * finfo.tiny)
+    trivial = gamma0 <= finfo.tiny
+
+    V = torch.zeros((K, n), dtype=dtype, device=dev)
+    V[0] = p0 / torch.where(trivial, 1.0, gamma0)
+    alphas = torch.ones((K,), dtype=dtype, device=dev)
+    betas = torch.zeros((K,), dtype=dtype, device=dev)
+    h = torch.zeros((K,), dtype=dtype, device=dev)
+    lam = torch.zeros((), dtype=dtype, device=dev)
+    interior = torch.ones((), dtype=torch.bool, device=dev)
+    min_ray = torch.full((), torch.inf, dtype=dtype, device=dev)
+    max_ray = torch.full((), -torch.inf, dtype=dtype, device=dev)
+    k = 1
+    done = bool(trivial)
+
+    while not done and k <= K:
+        j = k - 1  # current Lanczos index
+        v_j = V[j]
+        w = project_nullspace(aug_jac, hess_prod(v_j))
+        alpha_j = torch.dot(v_j, w)
+        alphas[j] = alpha_j
+        min_ray = torch.minimum(min_ray, alpha_j)
+        max_ray = torch.maximum(max_ray, alpha_j)
+
+        # full reorthogonalization against the stored basis
+        w = w - V.T @ (V @ w)
+        beta_next = torch.linalg.norm(w)
+
+        # reduced TR solve with the updated tridiagonal (warm-started)
+        h, lam, interior = _tridiag_tr_solve(alphas, betas, gamma0, radius, k, lam_warm=lam,
+                                             newton_iters=_MS_WARM_ITERS)
+
+        # GLTR convergence: Lanczos residual |beta_k * h_k|
+        converged = beta_next * h[j].abs() <= tol
+        breakdown = beta_next <= 100.0 * eps * torch.clamp(gamma0, min=1.0)
+
+        can_store = k + 1 <= K
+        betas[min(k, K - 1)] = beta_next if can_store else 0.0
+        k += 1
+        done = bool(converged | breakdown) or k > K
+        if not done:
+            V[k - 1] = w / torch.where(beta_next > 0.0, beta_next, 1.0)
+
+    d = V.T @ h
+    d = torch.where(trivial, 0.0, d)
+    # final safeguard: never exceed the radius
+    dn = torch.linalg.norm(d)
+    d = d * torch.where(dn > radius, radius / torch.clamp(dn, min=finfo.tiny), 1.0)
+
+    iters = k - 1
+    zero_spectrum = iters == 0
+    return TRResult(
+        step=d,
+        on_boundary=~interior,
+        iterations=torch.full((), iters, dtype=torch.int32, device=dev),
+        min_rayleigh=torch.zeros_like(min_ray) if zero_spectrum else min_ray,
+        max_rayleigh=torch.zeros_like(max_ray) if zero_spectrum else max_ray,
+    )

@@ -1,0 +1,92 @@
+"""Byrd-style penalty parameter update and the global penalty reset.
+
+Port of ``sleqp_tpu/penalty.py`` (reference src/main/penalty.c): compare
+the current average linearized violation with the best achievable one (a
+FEAS-objective LP re-solve) and raise the penalty x10 (at most 100 times),
+re-solving the LP from the previous basis, until the violation reduction
+is acceptable.  The reference's ``lax.cond``/``lax.while_loop`` are Python
+branches and a loop on scalars read from the device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cauchy import CauchyResult, solve_cauchy_lp
+from .iterate import Iterate, max0
+from .problem import ProblemData
+from .types import LPSolver
+
+Tensor = torch.Tensor
+
+PENALTY_INCREASE = 10.0  # penalty.c:6
+VIOLATION_TOL = 1e-8  # penalty.c:7
+MIN_DECREASE = 0.1  # penalty.c:8
+MAX_INCREASES = 100  # penalty.c:9
+
+
+def update_penalty(
+    data: ProblemData,
+    it: Iterate,
+    lp_trust_radius: Tensor,
+    penalty: Tensor,
+    current: CauchyResult,
+    lp_solver: LPSolver = LPSolver.SIMPLEX,
+    pdlp_tol: float = 1e-9,
+    compute_dtype=None,
+) -> tuple[Tensor, CauchyResult, Tensor]:
+    """Returns (new_penalty, cauchy_result_at_new_penalty, changed).  When
+    the penalty changes, the CauchyResult is the LP solve at the final
+    penalty (trial_point/cauchy_step.c:150-166)."""
+    m = it.cons_val.shape[0]
+    assert m > 0
+    unchanged = torch.zeros((), dtype=torch.bool, device=it.x.device)
+
+    cur_viol = current.violation / m
+
+    def solve_at(pen, basis, feas):
+        # MIXED/FEAS re-solves never trigger the reduced resolve
+        # (standard_cauchy.c:932-945, DEFAULT objective only)
+        return solve_cauchy_lp(data, it, lp_trust_radius, pen, basis, feasibility_mode=feas,
+                               lp_resolves=False, lp_solver=lp_solver, pdlp_tol=pdlp_tol,
+                               compute_dtype=compute_dtype)
+
+    # skip when already (linearly) feasible enough (penalty.c:30-37)
+    if bool(cur_viol <= VIOLATION_TOL):
+        return penalty, current, unchanged
+
+    feas_res = solve_at(penalty, current.basis, True)
+    inf_viol = feas_res.violation / m
+    achievable = inf_viol <= VIOLATION_TOL
+    # if even the best violation is above tolerance and no progress is
+    # possible, keep the penalty (penalty.c:100-110)
+    stuck = (~achievable) & (cur_viol - inf_viol <= VIOLATION_TOL)
+    if bool(stuck):
+        return penalty, current, unchanged
+
+    pen, result, count = penalty, current, 0
+    while True:
+        pen = pen * PENALTY_INCREASE
+        result = solve_at(pen, result.basis, False)
+        next_viol = result.violation / m
+        ok = torch.where(achievable, next_viol <= VIOLATION_TOL,
+                         (cur_viol - next_viol) >= MIN_DECREASE * (cur_viol - inf_viol))
+        count += 1
+        if bool(ok) or count >= MAX_INCREASES:
+            break
+    return pen, result, ~unchanged
+
+
+# Global penalty reset constants (trial_point/cauchy_step.c:15-17)
+ALLOWED_DUAL_FACTOR = 1000.0
+ALLOWED_DUAL_OFFSET = 1.0
+PENALTY_OFFSET = 10.0
+
+
+def global_penalty_reset(it: Iterate, penalty: Tensor, allow_reset: Tensor):
+    """Reset an inflated penalty once feasible for several steps
+    (trial_point/cauchy_step.c:55-79).  Returns (penalty, did_reset)."""
+    dual_norm = torch.maximum(max0(it.cons_dual.abs()), max0(it.vars_dual.abs()))
+    max_allowed = ALLOWED_DUAL_FACTOR * (dual_norm + ALLOWED_DUAL_OFFSET)
+    reset = allow_reset & (penalty > max_allowed)
+    return torch.where(reset, dual_norm + PENALTY_OFFSET, penalty), reset

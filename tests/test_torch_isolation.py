@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+import sleqp_tpu_torch as tx
 from sleqp_tpu_torch import BlockStructuredProblem, Settings, ocp_initial_state, ocp_solve
-from sleqp_tpu_torch.convert import problem_arrays_from_numpy, state_from_numpy
+from sleqp_tpu_torch.convert import problem_arrays_from_numpy, state_from_numpy, tree_from_numpy
+from sleqp_tpu_torch.problem import ProblemData
 from sleqp_tpu_torch.kernels import _build
 from torch_parity import dynamics, no_jax_cache_writes, stage_cost  # noqa: F401
 
@@ -57,8 +59,12 @@ def test_port_and_chip_smoke_import_no_jax():
     proc = _run(["-c", IMPORT_ALL], REPO, PYTHONPATH=str(REPO))
     assert proc.returncode == 0, proc.stderr
     # every module of the package: __init__, types, settings, convert, ocp,
-    # kernels (+ _build), ops (+ four modules), and chip_smoke
-    assert int(proc.stdout.split()[-1]) >= 13, proc.stdout
+    # device, kernels (+ _build), ops (+ block_tridiag, cyclic_reduction,
+    # pallas_tridiag, pallas_chol_tridiag, kkt, simplex, lp_enum, tr_cg,
+    # gltr), the dense solve (problem, iterate, merit, cauchy, newton,
+    # linesearch, penalty, step_rule, measure, quasi_newton,
+    # problem_solver), and chip_smoke
+    assert int(proc.stdout.split()[-1]) >= 30, proc.stdout
 
 
 def test_chip_smoke_without_card_prints_no_result():
@@ -89,6 +95,20 @@ def test_entry_points_default_to_cuda(monkeypatch):
         state_from_numpy({})
     # asked for the CPU, the same solve runs
     assert int(ocp_solve(problem, Settings(), device="cpu").iteration) >= 1
+
+    # the dense SLP-EQP solve
+    func = tx.Func(lambda x: (x * x).sum(), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tx.Problem(func)
+    dense = tx.Problem(func, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tx.solve(dense, Settings(), np.ones(2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tx.initial_state(dense, Settings(), np.ones(2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tree_from_numpy(ProblemData, {})
+    out = tx.solve(dense, Settings(), np.ones(2), device="cpu")
+    assert int(out.status) == tx.Status.OPTIMAL and out.it.x.device.type == "cpu"
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

@@ -210,3 +210,27 @@ def test_thomas_kernels_reject_operands_on_two_devices(cuda):
         pt.thomas_bwd(D, Lp.cpu(), b)
     with pytest.raises(ValueError, match="is on"):
         pc.chol_thomas_solve(D[None], Lp[None], b[None].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", [
+    [1.0, 3.0, 3.0, 2.0], [float("nan"), 1.0, float("nan")], [2.0, float("nan"), 5.0],
+    [0.0, 0.0, 0.0], [-float("inf"), -float("inf"), 0.0]])
+def test_argmax_argmin_tie_and_nan_rule_on_card(cuda, values):
+    """The dense solve's pivoting (ops/simplex.py, ops/lp_enum.py) rests on
+    argmax/argmin picking the first index of a tie and taking NaN as the
+    extreme value; on the card as on the CPU, where the JAX package's rule
+    is the same (tests/test_torch_simplex.py)."""
+    from sleqp_tpu_torch.ops import simplex
+
+    v = torch.tensor(values, dtype=torch.float64)
+    for fn in (torch.argmax, torch.argmin):
+        assert int(fn(v.to(cuda))) == int(fn(v))
+    assert torch.equal(torch.isnan(simplex.sign(v.to(cuda))).cpu(), torch.isnan(simplex.sign(v)))
+    # over a long vector too, where the reduction runs in several blocks
+    w = torch.zeros(100_000, dtype=torch.float64)
+    w[[70_000, 90_000]] = 5.0
+    for fn in (torch.argmax, torch.argmin):
+        assert int(fn(w.to(cuda))) == int(fn(w))
+    w[[60_000, 95_000]] = float("nan")
+    assert int(torch.argmax(w.to(cuda))) == int(torch.argmax(w)) == 60_000

@@ -1,0 +1,201 @@
+"""Shared pieces of the dense SLP-EQP parity tests (tests/test_torch_*.py):
+the same problems in both packages, and the carrying of iterates and
+solver states between them.
+
+Each pair is (JAX problem, port problem on the CPU, x0 as numpy), built
+from the same numpy data.  HS71 and the small fixtures follow
+tests/fixtures.py; ``chainineq``, ``chainqp`` and ``boxqp`` follow
+sleqp_tpu/harness/medium.py (same seeds) at a size given by the caller.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import fixtures
+import sleqp_tpu as jx
+import sleqp_tpu.cauchy as jc
+import sleqp_tpu.penalty as jpn
+import sleqp_tpu_torch as tx
+from sleqp_tpu_torch.convert import tree_from_numpy, tree_to_numpy
+from sleqp_tpu_torch.iterate import Iterate
+from sleqp_tpu_torch.problem_solver import SolverState
+
+
+def hs71():
+    def obj(x):
+        return x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2]
+
+    def cons(x):
+        return torch.stack([x[0] * x[1] * x[2] * x[3], x @ x])
+
+    jp, x0, _ = fixtures.hs71_problem()
+    tp = tx.Problem(tx.Func(obj, 4, cons=cons, num_cons=2), var_lb=1.0, var_ub=5.0,
+                    general_lb=np.array([25.0, 40.0]), general_ub=np.array([np.inf, 40.0]),
+                    device="cpu")
+    return jp, tp, np.array(x0)
+
+
+def wachbieg():
+    def obj(x):
+        return x[0]
+
+    def cons(x):
+        return torch.stack([x[0] ** 2 - x[1] - 1.0, x[0] - x[2] - 0.5])
+
+    jp, x0, _ = fixtures.wachbieg_problem()
+    tp = tx.Problem(tx.Func(obj, 3, cons=cons, num_cons=2),
+                    var_lb=np.array([-np.inf, 0.0, 0.0]), var_ub=np.inf,
+                    general_lb=0.0, general_ub=0.0, device="cpu")
+    return jp, tp, np.array(x0)
+
+
+def quadcons():
+    def obj(x):
+        return x[0] ** 2 + x[1] ** 2
+
+    def cons(x):
+        return torch.stack([x[0] ** 2 + x[1] ** 2, x[1] ** 2 + x[0]])
+
+    jp, x0, _ = fixtures.quadcons_problem()
+    tp = tx.Problem(tx.Func(obj, 2, cons=cons, num_cons=2), var_lb=0.0, var_ub=1.0,
+                    general_lb=-np.inf, general_ub=1.0, device="cpu")
+    return jp, tp, np.array(x0)
+
+
+def linear():
+    def obj(x):
+        return -x[0] - 2.0 * x[1]
+
+    jp, x0, _ = fixtures.linear_problem()
+    d = jp.data
+    tp = tx.Problem(tx.Func(obj, 2), var_lb=np.array(d.var_lb), var_ub=np.array(d.var_ub),
+                    linear_coeffs=np.array(d.linear_coeffs), linear_lb=np.array(d.cons_lb),
+                    linear_ub=np.array(d.cons_ub), device="cpu")
+    return jp, tp, np.array(x0)
+
+
+def chainineq(n):
+    """harness/medium.py::chainineq200 at size n: min 1/2||x - t||^2
+    s.t. |x_{i+1} - x_i| <= 0.05."""
+    rng = np.random.default_rng(41)
+    t = np.cumsum(rng.standard_normal(n)) * 0.2
+    tj, tt = jnp.asarray(t), torch.as_tensor(t)
+    jp = jx.Problem(jx.Func(lambda x: 0.5 * jnp.sum((x - tj) ** 2), n,
+                            cons=lambda x: x[1:] - x[:-1], num_cons=n - 1),
+                    general_lb=-0.05, general_ub=0.05)
+    tp = tx.Problem(tx.Func(lambda x: 0.5 * ((x - tt.to(x)) ** 2).sum(), n,
+                            cons=lambda x: x[1:] - x[:-1], num_cons=n - 1),
+                    general_lb=-0.05, general_ub=0.05, device="cpu")
+    return jp, tp, np.zeros(n)
+
+
+def chainqp(n):
+    """harness/medium.py::chainqp200 at size n: min sum (x_i - t_i)^2 with
+    the chain as linear constraints |x_{i+1} - x_i| <= 0.006, PSD."""
+    t = np.linspace(0.0, 1.0, n)
+    tj, tt = jnp.asarray(t), torch.as_tensor(t)
+    A = np.zeros((n - 1, n))
+    for i in range(n - 1):
+        A[i, i], A[i, i + 1] = -1.0, 1.0
+    jp = jx.Problem(jx.Func(lambda x: jnp.sum((x - tj) ** 2), n, psd_hessian=True),
+                    linear_coeffs=jnp.asarray(A), linear_lb=-0.006, linear_ub=0.006)
+    tp = tx.Problem(tx.Func(lambda x: ((x - tt.to(x)) ** 2).sum(), n, psd_hessian=True),
+                    linear_coeffs=A, linear_lb=-0.006, linear_ub=0.006, device="cpu")
+    return jp, tp, np.zeros(n)
+
+
+def boxqp(n):
+    """harness/medium.py::boxqp1000 at size n: min sum (x_i - c_i)^2 over
+    [0, 1]^n, PSD, no constraints."""
+    rng = np.random.default_rng(7)
+    c = rng.uniform(-0.5, 1.5, n)
+    cj, ct = jnp.asarray(c), torch.as_tensor(c)
+    jp = jx.Problem(jx.Func(lambda x: jnp.sum((x - cj) ** 2), n, psd_hessian=True),
+                    var_lb=0.0, var_ub=1.0)
+    tp = tx.Problem(tx.Func(lambda x: ((x - ct.to(x)) ** 2).sum(), n, psd_hessian=True),
+                    var_lb=0.0, var_ub=1.0, device="cpu")
+    return jp, tp, np.full(n, 0.5)
+
+
+# one compiled program per static configuration: the JAX package's
+# while_loops, called eagerly, compile again at every call
+jax_cauchy_lp = jax.jit(jc.solve_cauchy_lp, static_argnames=(
+    "settings_eps", "max_iterations", "feasibility_mode", "lp_resolves", "dual_warm_start",
+    "lp_solver", "pdlp_tol", "compute_dtype"))
+jax_update_penalty = jax.jit(jpn.update_penalty, static_argnames=(
+    "lp_solver", "pdlp_tol", "compute_dtype"))
+
+
+# ---- states between the packages ------------------------------------------
+
+
+def jax_to_numpy(obj):
+    """A JAX pytree (dataclasses of arrays) with numpy leaves."""
+    return jax.tree_util.tree_map(np.asarray, obj)
+
+
+def port_state(jax_state):
+    """The port's SolverState (CPU) from a JAX SolverState."""
+    return tree_from_numpy(SolverState, jax_to_numpy(jax_state), device="cpu")
+
+
+def port_iterate(jax_it):
+    return tree_from_numpy(Iterate, jax_to_numpy(jax_it), device="cpu")
+
+
+def _flat(obj, prefix=""):
+    out = {}
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            out.update(_flat(v, f"{prefix}{k}."))
+    elif isinstance(obj, tuple):
+        for i, v in enumerate(obj):
+            out.update(_flat(v, f"{prefix}{i}."))
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            out.update(_flat(getattr(obj, f.name), f"{prefix}{f.name}."))
+    else:
+        out[prefix[:-1]] = np.asarray(obj)
+    return out
+
+
+def flat_jax(obj):
+    """{dotted field name: numpy array} of a JAX dataclass tree."""
+    return _flat(obj)
+
+
+def flat_port(obj):
+    """{dotted field name: numpy array} of a port dataclass tree."""
+    return _flat(tree_to_numpy(obj))
+
+
+def mismatches(port, ref, tol, skip=()):
+    """Fields of two flattened states that differ: floats by more than
+    ``tol`` (absolute, scaled by max(1, |ref|)), everything else exactly;
+    dtypes and shapes must agree."""
+    assert set(port) >= set(ref), sorted(set(ref) - set(port))
+    bad = {}
+    for key, b in ref.items():
+        if any(key.startswith(s) for s in skip):
+            continue
+        a = port[key]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            bad[key] = f"{a.dtype}{a.shape} vs {b.dtype}{b.shape}"
+        elif a.dtype.kind == "f":
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                bad[key] = "NaN pattern"
+                continue
+            fin = ~np.isnan(a)
+            with np.errstate(invalid="ignore"):  # inf - inf where both are inf
+                err = np.abs(a[fin] - b[fin])
+            scale = np.maximum(1.0, np.abs(np.where(np.isinf(b[fin]), 0.0, b[fin])))
+            same_inf = np.isinf(b[fin]) & (a[fin] == b[fin])
+            if np.any((err > tol * scale) & ~same_inf):
+                bad[key] = float(np.max(np.where(same_inf, 0.0, err)))
+        elif not np.array_equal(a, b):
+            bad[key] = (a.tolist() if a.size <= 8 else "differs", b.tolist() if b.size <= 8 else "")
+    return bad
