@@ -39,11 +39,22 @@ run from a checkout of the repository, on a machine with a CUDA device and
    against the CPU run, the state on the card; iterations, simplex pivots,
    ms per iteration and host reads (synchronizations) per iteration.  It
    launches none of the six kernels;
-8. one JSON line describing each kernel, then the result line.
+8. the entry point ``Solver(problem, x0, settings).solve()`` on the card and
+   on the CPU: default settings on both routes on HS71, chainineq200,
+   boxqp1000, projqp500 and broydn100 (an ``LSQFunc``: Gauss-Newton +
+   LSQR), hs62 with ``scaling="auto"``, the Waechter-Biegler problem
+   (restoration), DAMPED_BFGS and SR1 on extrosnb100 and DAMPED_BFGS on
+   HS71, the parametric Cauchy step (COARSE, FINE) on chainineq200, and the
+   preprocessor on hs42 with its linear constraint as a linear row; each
+   against the r5 CSV or a constant measured with the JAX package, with
+   seconds per solve, ms per iteration and host reads per iteration.  It
+   launches none of the six kernels;
+9. one JSON line describing each kernel, then the result line.
 
 Phases 3, 5 and 6 are the main paths of the kernels: the launch counts are
 cleared just before each and read just after, and the kernels line reports
-their sum.  Phase 7 is read the same way and must launch none of them.
+their sum.  Phases 7 and 8 are read the same way and must launch none of
+them.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device it exits with code 2 before any phase; outside
@@ -67,14 +78,19 @@ import torch  # noqa: E402
 from sleqp_tpu_torch import (  # noqa: E402
     BlockStructuredProblem,
     Func,
+    HessEval,
+    LSQFunc,
+    ParametricCauchy,
     Problem,
     Settings,
+    Solver,
     Status,
     ocp_initial_state,
     ocp_perform_iteration,
     ocp_solve,
     solve,
 )
+from sleqp_tpu_torch import gauss_newton  # noqa: E402
 from sleqp_tpu_torch.kernels import _build  # noqa: E402
 from sleqp_tpu_torch.ops import cyclic_reduction as cr  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc  # noqa: E402
@@ -421,17 +437,23 @@ def timed_solve(problem, settings, x0, device):
     return out, time.perf_counter() - t
 
 
-def host_reads(problem, settings, x0):
-    """Synchronizations of the host with the card over one solve, as
-    torch.cuda.set_sync_debug_mode counts them."""
+def count_host_reads(fn):
+    """(synchronizations of the host with the card while ``fn()`` runs, as
+    torch.cuda.set_sync_debug_mode counts them, its result)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            out = solve(problem, settings, x0, max_iterations=200, device="cuda")
+            out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sum("synchroniz" in str(w.message) for w in caught), out
+
+
+def host_reads(problem, settings, x0):
+    """Host reads over one dense solve."""
+    return count_host_reads(
+        lambda: solve(problem, settings, x0, max_iterations=200, device="cuda"))
 
 
 def dense_phase(log):
@@ -480,6 +502,191 @@ def dense_phase(log):
                 check(dx <= 1e-6, f"dense {name}: x differs from the CPU run by {dx:.3e}")
             check(all(t.device.type == "cuda" for t in tensors_of(out)),
                   f"dense {name} {route}: a tensor of the final state is not on the card")
+
+
+# Phase 8: the entry point, Solver(problem, x0, settings).solve().  The
+# problems at the sizes of the repository's medium suite
+# (sleqp_tpu/harness/medium.py and hs.py, same seeds).  Each run: (label,
+# problem, settings, scaling, reference objective, {route: reference
+# iterations}, the iterations a named rounding tie may add on the float64
+# route, the reference's source).  The mixed route may take 3 iterations
+# more or fewer, as the parity tests allow it (float32 pivots and Krylov
+# steps round differently).  Objectives are held to 1e-6 relative (absolute
+# below 1: broydn100's and extrosnb100's optima are 0).  CSV rows are
+# artifacts/suite_all_{f64,mixed}_r5.csv; JAX constants were measured with
+# the JAX package's Solver on the CPU, float64.  hs42 is the suite's hs42
+# with its linear constraint x0 = 2 stated as a linear row, which the
+# preprocessor turns into a bound (objective: its CSV row; iterations: JAX).
+CSV = "r5 CSV"
+JAX = "JAX Solver"
+SOLVER_RUNS = [
+    # default settings, both routes (chainineq200: the standing tie of
+    # ROADMAP.md queue C, 25 / 26 against 24)
+    ("hs71", "hs71", {}, None, 17.014017157, {"same": 6, "float32": 6}, 0, CSV),
+    ("chainineq200", "chainineq200", {}, None, 8.0110686546, {"same": 24, "float32": 24}, 3, CSV),
+    ("boxqp1000", "boxqp1000", {}, None, 41.215701999, {"same": 4, "float32": 11}, 0, CSV),
+    ("projqp500", "projqp500", {}, None, 8.5076360667, {"same": 3, "float32": 4}, 0, CSV),
+    ("broydn100", "broydn100", {}, None, 1.4003911791e-24, {"same": 5, "float32": 5}, 0, CSV),
+    ("hs62 scaling=auto", "hs62", {}, "auto", -26272.514487, {"same": 6}, 0, CSV),
+    ("wachbieg (restoration)", "wachbieg", {}, None, 1.0000000000001286, {"same": 3}, 0, JAX),
+    ("hs71 DAMPED_BFGS", "hs71", dict(hess_eval=HessEval.DAMPED_BFGS), None,
+     17.014017289155834, {"same": 8}, 0, JAX),
+    ("extrosnb100 DAMPED_BFGS", "extrosnb100", dict(hess_eval=HessEval.DAMPED_BFGS), None,
+     3.805463645728005e-16, {"same": 60}, 0, JAX),
+    ("extrosnb100 SR1", "extrosnb100", dict(hess_eval=HessEval.SR1), None,
+     8.706600365114965e-14, {"same": 102}, 0, JAX),
+    # the LP's degenerate vertices tie as in the default solve (ROADMAP.md
+    # queue C): the port takes 17 / 20 on the CPU against 16 / 22
+    ("chainineq200 COARSE", "chainineq200", dict(parametric_cauchy=ParametricCauchy.COARSE), None,
+     8.011068654610282, {"same": 16}, 3, JAX),
+    ("chainineq200 FINE", "chainineq200", dict(parametric_cauchy=ParametricCauchy.FINE), None,
+     8.01106865461028, {"same": 22}, 3, JAX),
+    ("hs42 presolve", "hs42_linear", dict(enable_preprocessor=True), None, 13.857864376,
+     {"same": 3}, 0, "r5 CSV (objective), JAX Solver (iterations)"),
+]
+
+
+def solver_problem(name, device):
+    """(Problem, x0) of a phase 8 run."""
+    if name in DENSE_REF:
+        return dense_problem(name, device)
+    inf = float("inf")
+    if name == "projqp500":
+        n, m = 500, 20
+        rng = np.random.default_rng(17)
+        A, t, b = rng.standard_normal((m, n)), rng.standard_normal(n), rng.standard_normal(m)
+        tt = torch.tensor(t, device=device)
+        func = Func(lambda x: 0.5 * ((x - tt.to(x)) ** 2).sum(), n)
+        return Problem(func, linear_coeffs=A, linear_lb=b, linear_ub=b, device=device), np.zeros(n)
+    if name == "broydn100":
+        n = 100
+
+        def residuals(x):
+            z = torch.zeros(1, dtype=x.dtype, device=x.device)
+            return (3.0 - 2.0 * x) * x - torch.cat([z, x[:-1]]) - 2.0 * torch.cat([x[1:], z]) + 1.0
+
+        return Problem(LSQFunc(residuals, n, n), device=device), np.full(n, -1.0)
+    if name == "extrosnb100":
+        n = 100
+        func = Func(lambda x: (100.0 * (x[1::2] - x[0::2] ** 2) ** 2
+                               + (1.0 - x[0::2]) ** 2).sum(), n)
+        return Problem(func, device=device), np.tile([-1.2, 1.0], n // 2)
+    if name == "hs62":
+        def obj(x):
+            s1 = (x[0] + x[1] + x[2] + 0.03) / (0.09 * x[0] + x[1] + x[2] + 0.03)
+            s2 = (x[1] + x[2] + 0.03) / (0.07 * x[1] + x[2] + 0.03)
+            s3 = (x[2] + 0.03) / (0.13 * x[2] + 0.03)
+            return -32.174 * (255.0 * torch.log(s1) + 280.0 * torch.log(s2)
+                              + 290.0 * torch.log(s3))
+
+        func = Func(obj, 3, cons=lambda x: (x.sum() - 1.0)[None], num_cons=1)
+        return (Problem(func, var_lb=0.0, var_ub=1.0, general_lb=0.0, general_ub=0.0,
+                        device=device), np.array([0.7, 0.2, 0.1]))
+    if name == "wachbieg":
+        func = Func(lambda x: x[0], 3, num_cons=2,
+                    cons=lambda x: torch.stack([x[0] ** 2 - x[1] - 1.0, x[0] - x[2] - 0.5]))
+        return (Problem(func, var_lb=[-inf, 0.0, 0.0], var_ub=inf, general_lb=0.0,
+                        general_ub=0.0, device=device), np.array([-2.0, 1.0, 1.0]))
+    # hs42 with its linear constraint x0 = 2 as a linear row
+    func = Func(lambda x: ((x - torch.arange(1.0, 5.0, dtype=x.dtype, device=x.device)) ** 2).sum(),
+                4, cons=lambda x: (x[2] ** 2 + x[3] ** 2 - 2.0)[None], num_cons=1)
+    return (Problem(func, general_lb=0.0, general_ub=0.0, linear_coeffs=[[1.0, 0.0, 0.0, 0.0]],
+                    linear_lb=2.0, linear_ub=2.0, device=device), np.ones(4))
+
+
+class LsqrSteps:
+    """Counts the LSQR solves and their steps of the Gauss-Newton step
+    (the steps are summed on the device and read once, after the solve)."""
+
+    def __init__(self):
+        self.calls, self.steps = 0, []
+        self._inner = gauss_newton.lsqr_tr
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            d, steps = self._inner(*args, **kwargs)
+            self.calls += 1
+            self.steps.append(steps)
+            return d, steps
+
+        gauss_newton.lsqr_tr = counted
+        return self
+
+    def __exit__(self, *exc):
+        gauss_newton.lsqr_tr = self._inner
+
+    def total(self):
+        return int(torch.stack(self.steps).sum()) if self.steps else 0
+
+
+def timed_solver(name, settings, scaling, device):
+    problem, x0 = solver_problem(name, device)
+    solver = Solver(problem, x0, settings, scaling=scaling, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    status = solver.solve(max_iterations=1000)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return solver, status, time.perf_counter() - t
+
+
+def solver_phase(log):
+    """Phase 8: Solver(problem, x0, settings).solve() on the card and on the
+    CPU."""
+    base = Settings()
+    for label, name, kw, scaling, f_ref, it_refs, tie, source in SOLVER_RUNS:
+        for route, it_ref in it_refs.items():
+            settings = Settings(compute_dtype=route, **kw)
+            with LsqrSteps() as lsqr:
+                solver, status, gpu_s = timed_solver(name, settings, scaling, "cuda")
+            ref, ref_status, cpu_s = timed_solver(name, settings, scaling, "cpu")
+            iters, cpu_iters = solver.iterations, ref.iterations
+            obj = solver.obj_val
+            feas, slack, stat = solver.residuals()
+            dx = float(np.abs(solver.solution - ref.solution).max())
+            line = (f"{label} ({'float64' if route == 'same' else 'mixed'}): {status.name} "
+                    f"obj={obj:.11g} (reference {f_ref}, {source}); feas={feas:.3e} "
+                    f"slack={slack:.3e} stat={stat:.3e}; iterations card {iters}, CPU "
+                    f"{cpu_iters}, reference {it_ref}; restoration phases "
+                    f"{solver.num_phase_toggles}; card {gpu_s:.3f} s per solve, "
+                    f"{1e3 * gpu_s / max(iters, 1):.2f} ms per iteration; CPU {cpu_s:.3f} s, "
+                    f"{1e3 * cpu_s / max(cpu_iters, 1):.2f} ms per iteration; "
+                    f"max |x_card - x_cpu| {dx:.3e}")
+            if lsqr.calls:
+                line += f"; Gauss-Newton steps {lsqr.calls}, LSQR steps {lsqr.total()}"
+            if route == "same":
+                reads, _ = count_host_reads(
+                    lambda: timed_solver(name, settings, scaling, "cuda"))
+                line += f"; host reads {reads} ({reads / max(iters, 1):.1f} per iteration)"
+            pre = solver._preprocessed
+            if pre is not None:
+                line += (f"; presolve fixed variables {pre.fixed_vars.tolist()} at "
+                         f"{pre.fixed_values.tolist()}, removed linear rows "
+                         f"{pre.removed_linear.tolist()}, {len(pre.converted_bounds)} row(s) "
+                         f"made bounds")
+            log(8, line)
+            check(status == Status.OPTIMAL, f"{label} {route}: {status.name}, not OPTIMAL")
+            check(ref_status == status, f"{label} {route}: CPU status {ref_status.name}")
+            check(abs(obj - f_ref) <= 1e-6 * max(1.0, abs(f_ref)),
+                  f"{label} {route}: objective {obj} against {f_ref}")
+            check(feas <= base.feas_tol and slack < base.slack_tol and stat < base.stat_tol,
+                  f"{label} {route}: residuals")
+            slack = tie if route == "same" else max(tie, 3)
+            check(abs(iters - it_ref) <= slack,
+                  f"{label} {route}: {iters} iterations against {it_ref}")
+            if route == "same":
+                check(dx <= 1e-6, f"{label}: x differs from the CPU run by {dx:.3e}")
+            state_tensors = tensors_of(solver.state) + tensors_of(solver.iterate)
+            check(all(t.device.type == "cuda" for t in state_tensors),
+                  f"{label} {route}: a tensor of the final state is not on the card")
+            if name == "wachbieg":
+                check(solver.num_phase_toggles >= 1, "wachbieg: restoration was not entered")
+            if name == "broydn100":
+                check(lsqr.calls >= iters, "broydn100: the Gauss-Newton step was not taken")
+            if pre is not None:
+                check(len(pre.fixed_vars) > 0 and len(pre.removed_linear) > 0,
+                      f"{label}: the preprocessor removed nothing")
 
 
 def main():
@@ -822,14 +1029,21 @@ def main():
     check(not any(launches_dense.values()),
           f"the dense solve launched a kernel of B1-B6: {launches_dense}")
 
-    # -- phase 8: report ---------------------------------------------------
+    # -- phase 8: the entry point, Solver (no kernel of B1-B6) -----------
+    clear_counts()
+    solver_phase(log)
+    launches_solver = read_counts()
+    check(not any(launches_solver.values()),
+          f"the Solver phase launched a kernel of B1-B6: {launches_solver}")
+
+    # -- phase 9: report ---------------------------------------------------
     kernels = [
         dict(rec, launches=launches[name] + launches_kkt[name] + launches_pal[name])
         for name, rec in results.items()
     ]
     check(len(kernels) == 6 and all(r["launches"] > 0 for r in kernels),
           f"a kernel was not launched on the main paths: {kernels}")
-    log(8, "all checks passed")
+    log(9, "all checks passed")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,10 +1,13 @@
 """sleqp_tpu_torch: the PyTorch/CUDA port of sleqp_tpu.
 
-It holds two solves.  The general dense SLP-EQP solve (``Func``,
-``Problem``, ``solve``; ``problem_solver.py``) runs the reference's
-iteration: a Cauchy LP by vertex enumeration or the revised simplex, a
-GLTR or projected-CG Newton step, linesearches, and penalty and
-trust-region updates, on ``torch.linalg`` factorizations.  The structured
+It holds two solves.  The general dense SLP-EQP solve runs the
+reference's iteration (``problem_solver.py``): a Cauchy LP by vertex
+enumeration or the revised simplex (or the parametric sweep of its
+radius), a GLTR, projected-CG or Gauss-Newton/LSQR Newton step on exact or
+quasi-Newton Hessians, linesearches, and penalty and trust-region updates,
+on ``torch.linalg`` factorizations.  Its entry point is
+``Solver(problem, x0, settings).solve()`` (``solver.py``), which adds
+scaling, presolve, restoration, polishing and callbacks.  The structured
 (OCP) solve runs its float32 route through hand-written CUDA kernels
 (``kernels/csrc/bgj.cu``), and the mixed-precision block-tridiagonal solve
 layer (``ops/``) runs the streaming block Thomas
@@ -21,19 +24,59 @@ from .ocp import (
     ocp_perform_iteration,
     ocp_solve,
 )
-from .problem import Func, Problem
+from .iterate import create_iterate
+from .problem import Func, LSQFunc, Problem
 from .problem_solver import SolverState, initial_state, perform_iteration, solve
+from .scale import Scaling
 from .settings import Settings, read_settings_file, read_settings_string
-from .types import Status
+from .solver import Solver, SolverEvent
+from .types import (
+    ActiveState,
+    AugJacMethod,
+    BfgsSizing,
+    DualEstimationType,
+    HessEval,
+    InitialTRChoice,
+    Linesearch,
+    LPSolver,
+    MathError,
+    ParametricCauchy,
+    Polishing,
+    SolverPhase,
+    Status,
+    StepRule,
+    StepType,
+    TRSolver,
+)
 
 __all__ = [
+    "ActiveState",
+    "AugJacMethod",
+    "BfgsSizing",
     "BlockStructuredProblem",
+    "DualEstimationType",
     "Func",
+    "HessEval",
+    "InitialTRChoice",
+    "LPSolver",
+    "LSQFunc",
+    "Linesearch",
+    "MathError",
     "OCPState",
+    "ParametricCauchy",
+    "Polishing",
     "Problem",
+    "Scaling",
     "Settings",
+    "Solver",
+    "SolverEvent",
+    "SolverPhase",
     "SolverState",
     "Status",
+    "StepRule",
+    "StepType",
+    "TRSolver",
+    "create_iterate",
     "initial_state",
     "ocp_initial_state",
     "ocp_perform_iteration",

@@ -4,7 +4,9 @@ The parity tests build one problem and one starting state from numpy
 arrays and hand them to both the JAX package and this one; these helpers
 are the port's side of that exchange: for the structured (OCP) solve its
 problem arrays and ``OCPState``, for the dense SLP-EQP solve its
-``ProblemData``, ``Iterate`` and ``SolverState``.
+``ProblemData``, ``Iterate`` and ``SolverState`` (with the quasi-Newton
+ring buffers, one per Hessian block where there are blocks), and the
+``Scaling`` weights of ``Solver``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .measure import Measure
 from .ocp import OCPState
 from .problem_solver import SolverState
 from .quasi_newton import QNPrev, QNState
+from .scale import Scaling
 from .step_rule import StepRuleState
 
 _PROBLEM_ARRAYS = ("x0", "u_lb", "u_ub", "x_lb", "x_ub")
@@ -95,13 +98,29 @@ def _from_tree(cls, src: Any, dev: torch.device):
 
 
 def tree_from_numpy(cls, src: Any, device: Any = None):
-    """One of the port's ``ProblemData``, ``Iterate`` or ``SolverState``
-    (``cls``) from numpy arrays: ``src`` is the JAX package's object of the
-    same name with its leaves turned into numpy (``jax.tree_util.tree_map(
-    np.asarray, state)``), or a nested mapping keyed by field name as
-    ``tree_to_numpy`` gives.  Dtypes and shapes are kept.  ``device=None``
-    means CUDA."""
-    return _from_tree(cls, src, resolve_device(device))
+    """One of the port's ``ProblemData``, ``Iterate``, ``SolverState``,
+    ``QNState`` or ``QNPrev`` (``cls``) from numpy arrays: ``src`` is the
+    JAX package's object of the same name with its leaves turned into
+    numpy (``jax.tree_util.tree_map(np.asarray, state)``), or a nested
+    mapping keyed by field name as ``tree_to_numpy`` gives; a tuple of them
+    (per-block ring buffers) gives a tuple.  Dtypes and shapes are kept.
+    ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+    if isinstance(src, (tuple, list)):
+        return tuple(_from_tree(cls, v, dev) for v in src)
+    return _from_tree(cls, src, dev)
+
+
+def scaling_from_reference(src: Any) -> Scaling:
+    """The port's ``Scaling`` from the JAX package's (or a mapping of its
+    fields): the integer weights, copied, stay on the host."""
+    return Scaling(
+        num_variables=int(_field(src, "num_variables")),
+        num_cons=int(_field(src, "num_cons")),
+        obj_weight=int(_field(src, "obj_weight")),
+        var_weights=np.array(_field(src, "var_weights"), dtype=np.int32),
+        cons_weights=np.array(_field(src, "cons_weights"), dtype=np.int32),
+    )
 
 
 def tree_to_numpy(obj: Any):

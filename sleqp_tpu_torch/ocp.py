@@ -370,8 +370,8 @@ def _structured_kkt_step(problem, c, g, G, H, frozen, reg, mesh=None, tridiag_ba
     """
     if mesh is not None:
         raise NotImplementedError(
-            "the sharded Schur solve (mesh=...) is not ported yet "
-            "(ROADMAP.md queue A, item 9)"
+            "the sharded Schur solve (mesh=..., parallel/schur.py) is not "
+            "ported yet (ROADMAP.md queue A item 11)"
         )
     dtype = H.dtype
     free = (~frozen).to(dtype)  # (T+1, nz)

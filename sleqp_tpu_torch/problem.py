@@ -9,6 +9,8 @@ Port of ``sleqp_tpu/problem.py``:
   float64), and the Hessian-of-the-Lagrangian product by reverse over
   reverse (the ``vjp`` of the Lagrangian gradient; the reference runs
   forward over reverse).  Each may be overridden as in the reference.
+* ``LSQFunc`` is a ``Func`` of residuals, 0.5 ||r(x)||^2, with the
+  Gauss-Newton Hessian product.
 * ``Problem`` combines a ``Func`` with variable bounds, general constraint
   bounds and separately stored linear constraints appended after the
   general ones (reference: problem.c:28-49,199-213), as dense tensors on
@@ -162,16 +164,63 @@ class Func:
         return pull(direction)[0]
 
 
-class LSQFunc(Func):
-    """Least-squares function model (reference ``LSQFunc``,
-    problem.py:312).  Its Gauss-Newton step (``gauss_newton.py`` and
-    ``ops/lsqr.py``) is not ported yet."""
+def linearize(fn: Callable[[Tensor], Tensor], x: Tensor):
+    """(fn(x), the Jacobian-vector product d -> J d, the vector-Jacobian
+    product u -> J^T u) of ``fn`` at ``x``, both by reverse mode: J d is
+    the vjp of the linear map u -> J^T u (the reference uses ``jax.jvp``;
+    forward mode in torch gives the tangent of a 0-d float32 tensor times a
+    Python float in float64)."""
+    value, pull = vjp(fn, x)
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LSQFunc and its Gauss-Newton step are not ported yet "
-            "(ROADMAP.md queue A item 8: gauss_newton.py + ops/lsqr.py)"
-        )
+    def vjp_fn(u: Tensor) -> Tensor:
+        return pull(u)[0]
+
+    _, pull_t = vjp(vjp_fn, torch.zeros_like(value))
+
+    def jvp_fn(d: Tensor) -> Tensor:
+        return pull_t(d)[0]
+
+    return value, jvp_fn, vjp_fn
+
+
+class LSQFunc(Func):
+    """Least-squares function model (reference ``LSQFunc``, src/main/lsq.c).
+
+    Wraps a residual callable into a ``Func`` whose objective is
+    ``0.5 ||r(x)||^2`` and whose Hessian product is the Gauss-Newton
+    approximation ``J_r^T J_r d (+ lm_factor d)`` (lsq.c:21,238-244); the
+    constraint part behaves as in ``Func``.  ``residuals`` follows its
+    argument's dtype and device, as every callable does.
+    """
+
+    def __init__(
+        self,
+        residuals: Callable[[Tensor], Tensor],
+        num_variables: int,
+        num_residuals: int,
+        cons: Optional[Callable[[Tensor], Tensor]] = None,
+        num_cons: int = 0,
+        lm_factor: float = 0.0,
+    ):
+        self.residuals = residuals
+        self.num_residuals = int(num_residuals)
+        self.lm_factor = float(lm_factor)
+
+        def obj(x: Tensor) -> Tensor:
+            r = residuals(x)
+            return 0.5 * torch.dot(r, r)
+
+        def hess_prod(x: Tensor, direction: Tensor, cons_dual: Tensor) -> Tensor:
+            # Gauss-Newton: J_r^T (J_r d); the constraints' curvature is
+            # left out (lsq.c:238-244)
+            _, jvp_fn, vjp_fn = linearize(residuals, x)
+            out = vjp_fn(jvp_fn(direction))
+            if self.lm_factor != 0.0:
+                out = out + self.lm_factor * direction
+            return out
+
+        super().__init__(obj=obj, num_variables=num_variables, cons=cons, num_cons=num_cons,
+                         hess_prod=hess_prod, psd_hessian=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,7 +302,7 @@ class Problem:
         if self.num_general:
             parts.append(self.func.cons_val(x))
         if self.num_linear:
-            parts.append(self.data.linear_coeffs @ x)
+            parts.append(self.data.linear_coeffs.to(x.dtype) @ x)
         if not parts:
             return torch.zeros((0,), dtype=x.dtype, device=x.device)
         return torch.cat(parts)

@@ -19,10 +19,12 @@ selects with ``where``, the port selects with ``torch.where``, which takes
 nothing (NaN or inf included) from the side it does not select; a stopping
 iteration returns its stopped state without evaluating the trial point.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: quasi-Newton Hessians (``hess_eval != EXACT``, item 7),
-the parametric Cauchy step (item 7), the PDLP LP backend (item 6), and
-dynamic (inexact) functions and ``LSQFunc``'s Gauss-Newton step (item 8).
+Quasi-Newton Hessians (``hess_eval != EXACT``) push their pair on one
+host read of ``qn_prev.pending``; the parametric Cauchy sweep and the
+Gauss-Newton step of an ``LSQFunc`` read one stop flag per LP re-solve or
+LSQR step.  Not ported yet, each raising ``NotImplementedError`` that names
+its ROADMAP.md item: the PDLP LP backend (item 6) and dynamic (inexact)
+functions (item 8e).
 """
 
 from __future__ import annotations
@@ -42,15 +44,24 @@ from .cauchy import (
     solve_cauchy_lp,
 )
 from .device import resolve_device
-from .iterate import Iterate, create_iterate, kkt_residuals, max0, max_violation
+from .gauss_newton import compute_gauss_newton_step
+from .iterate import (
+    Iterate,
+    create_iterate,
+    kkt_residuals,
+    max0,
+    max_violation,
+    tree_where,
+)
 from .linesearch import cauchy_linesearch, trial_linesearch, trial_linesearch_exact
 from .measure import Measure, compute_measure, empty_measure
 from .merit import make_direction, merit_func, merit_linear, merit_quadratic
 from .newton import _working_set_rhs, compute_newton_step, compute_working_step
 from .ops.kkt import aug_jac_create, solve_lsq, solve_min_norm
+from .parametric import parametric_solve
 from .penalty import global_penalty_reset, update_penalty
-from .problem import Problem
-from .quasi_newton import QN_NOT_PORTED, QNPrev, qn_init, qn_prev_init
+from .problem import LSQFunc, Problem
+from .quasi_newton import QNPrev, qn_astype, qn_init, qn_prev_init, qn_product, qn_push
 from .settings import Settings
 from .step_rule import StepRuleState, apply_step_rule, step_rule_init
 from .types import (
@@ -77,38 +88,23 @@ NUM_RESET_STEPS = 5
 SOC_SAFEGUARD_FACTOR = 10.0
 
 
-def _tree_where(pred: Tensor, a, b):
-    """Field-by-field ``torch.where`` over two states of one dataclass
-    type (tuples and nested dataclasses included)."""
-    if isinstance(a, Tensor):
-        return torch.where(pred, a, b)
-    if isinstance(a, tuple):
-        return tuple(_tree_where(pred, x, y) for x, y in zip(a, b))
-    return type(a)(**{f.name: _tree_where(pred, getattr(a, f.name), getattr(b, f.name))
-                      for f in dataclasses.fields(a)})
-
-
 def _aug_jac_method(settings: Settings) -> str:
     """AUG_JAC_METHOD to a factorization route (trial_point.c:64-130)."""
     return "direct" if settings.aug_jac_method == AugJacMethod.DIRECT else "reduced"
 
 
+DYN_NOT_PORTED = (
+    "dynamic (inexact) functions (dyn.py) are not ported yet "
+    "(ROADMAP.md queue A item 8e)")
+
+
 def _check_in_slice(problem: Problem, settings: Settings) -> None:
     """Raise ``NotImplementedError`` for a branch that is not ported yet."""
-    if settings.hess_eval != HessEval.EXACT:
-        raise NotImplementedError(QN_NOT_PORTED)
     if hasattr(problem.func, "eval_all_dyn"):
-        raise NotImplementedError(
-            "dynamic (inexact) functions (dyn.py) are not ported yet "
-            "(ROADMAP.md queue A item 8)")
+        raise NotImplementedError(DYN_NOT_PORTED)
     m = problem.num_cons
     if m > 0 and resolved_lp_solver(settings, problem.num_variables, m) == LPSolver.PDLP:
         raise NotImplementedError(PDLP_NOT_PORTED)
-    if (m > 0 and settings.parametric_cauchy != ParametricCauchy.DISABLED
-            and settings.use_quadratic_model):
-        raise NotImplementedError(
-            "the parametric Cauchy step (parametric.py) is not ported yet "
-            "(ROADMAP.md queue A item 7)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,7 +196,9 @@ def initial_state(problem: Problem, settings: Settings, x0: Any,
         max_rayleigh=f(0.0),
         lp_iterations=i(0),
         boundary_step=torch.zeros((), dtype=torch.bool, device=dev),
-        qn=qn_init(n, 0, dtype, device=dev),
+        qn=(qn_init(n, settings.num_quasi_newton_iterates, dtype,
+                    blocks=problem.func.hess_struct, device=dev)
+            if settings.hess_eval != HessEval.EXACT else qn_init(n, 0, dtype, device=dev)),
         qn_prev=qn_prev_init(n, m, dtype, device=dev),
         step_rule=step_rule_init(settings.step_rule, dtype, device=dev),
         error_bound=f(getattr(problem.func, "initial_error_bound", 0.0)),
@@ -320,43 +318,91 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
     deadpoint = ((state.lp_trust_radius <= settings.deadpoint_bound)
                  | (state.trust_radius <= settings.deadpoint_bound))
 
+    # ---- quasi-Newton pair push (accepted steps, new duals) -----------
+    # pairs push on accepted steps with the Lagrangian gradient difference
+    # at the new multipliers (quasi_newton.c:140); the reference's
+    # lax.cond on qn_prev.pending is a branch on one host read
+    qn = state.qn
+    qn_blocks = problem.func.hess_struct
+    use_qn = settings.hess_eval != HessEval.EXACT
+    if use_qn and bool(state.qn_prev.pending):
+        prev = state.qn_prev
+        grad_new = it.obj_grad + it.cons_jac.T @ it.cons_dual
+        grad_old = prev.grad + prev.jac.T @ it.cons_dual
+        qn = qn_push(qn, it.x - prev.x, grad_new - grad_old, settings.hess_eval,
+                     settings.bfgs_sizing != 0, blocks=qn_blocks)
+
     # ---- working step + EQP multipliers -------------------------------
     ws = compute_working_step(data, it, aug_jac, state.trust_radius, settings.eps)
     multipliers = it.cons_dual + penalty * ws.violated_mult
 
-    def hess_prod(d):
-        return problem.hess_prod(it.x, d, multipliers)
-
-    # ---- Cauchy direction + linesearch --------------------------------
-    lp_tr_current = state.lp_trust_radius
-    cauchy_dir = make_direction(it, cres.lp_step, hess_prod(cres.lp_step))
-    if settings.use_quadratic_model:
-        cauchy_dir, full_cauchy, cauchy_merit = cauchy_linesearch(
-            data, it, cauchy_dir, penalty, state.trust_radius, settings.cauchy_tau,
-            settings.cauchy_eta, settings.eps)
+    if use_qn:
+        def hess_prod(d):
+            return qn_product(qn, d, settings.hess_eval, blocks=qn_blocks)
     else:
+        def hess_prod(d):
+            return problem.hess_prod(it.x, d, multipliers)
+
+    # ---- Cauchy direction + linesearch (or the parametric sweep) ------
+    lp_tr_current = state.lp_trust_radius
+    if (m > 0 and settings.parametric_cauchy != ParametricCauchy.DISABLED
+            and settings.use_quadratic_model):
+        cres, lp_tr_current, cauchy_dir, cauchy_merit = parametric_solve(
+            settings.parametric_cauchy, data, it, hess_prod, penalty, lp_tr_current, cres,
+            settings.cauchy_eta, settings.eps, lp_solver=lp_backend,
+            pdlp_tol=settings.pdlp_tol, compute_dtype=cdtype)
+        # the working set at the accepted radius, and the KKT
+        # factorization and working step on it (cauchy_step.c:205-231)
+        it = dataclasses.replace(it, var_states=cres.var_states, cons_states=cres.cons_states)
+        aug_jac = aug_jac_create(it.cons_jac, it.var_states, it.cons_states,
+                                 method=_aug_jac_method(settings))
+        ws = compute_working_step(data, it, aug_jac, state.trust_radius, settings.eps)
+        multipliers = it.cons_dual + penalty * ws.violated_mult
         full_cauchy = true
-        cauchy_merit = merit_linear(data, it, cauchy_dir, penalty)
+    else:
+        cauchy_dir = make_direction(it, cres.lp_step, hess_prod(cres.lp_step))
+        if settings.use_quadratic_model:
+            cauchy_dir, full_cauchy, cauchy_merit = cauchy_linesearch(
+                data, it, cauchy_dir, penalty, state.trust_radius, settings.cauchy_tau,
+                settings.cauchy_eta, settings.eps)
+        else:
+            full_cauchy = true
+            cauchy_merit = merit_linear(data, it, cauchy_dir, penalty)
 
     # ---- Newton/EQP step + trial linesearch ---------------------------
+    # Gauss-Newton + LSQR for an LSQ function with exact Hessians, the
+    # projected Newton step otherwise (eqp.c)
+    use_gauss_newton = (isinstance(problem.func, LSQFunc) and not use_qn
+                        and settings.tr_solver in (TRSolver.AUTO, TRSolver.LSQR))
     if settings.perform_newton_step and settings.use_quadratic_model:
-        # AUTO picks GLTR unless the Hessian is declared PSD (newton.c:96-106)
-        use_gltr = settings.tr_solver == TRSolver.GLTR or (
-            settings.tr_solver == TRSolver.AUTO and not problem.func.psd_hessian)
-        hess_prod_c = None
-        if cdtype is not None:
-            # a natively float32 Hessian operator: the callables run at the
-            # cast iterate, so the Krylov loop holds no float64 operation
-            x_c = it.x.to(cdtype)
-            problem.check_follows_dtype(x_c)
-            mult_c = multipliers.to(cdtype)
+        if use_gauss_newton:
+            newton = compute_gauss_newton_step(problem, data, it, aug_jac, ws, penalty,
+                                               settings.max_newton_iterations)
+        else:
+            # AUTO picks GLTR unless the Hessian is declared PSD (newton.c:96-106)
+            use_gltr = settings.tr_solver == TRSolver.GLTR or (
+                settings.tr_solver == TRSolver.AUTO and not problem.func.psd_hessian)
+            hess_prod_c = None
+            if cdtype is not None and use_qn:
+                # the ring buffer cast to float32
+                qn_c = qn_astype(qn, cdtype)
 
-            def hess_prod_c(d):
-                return problem.hess_prod(x_c, d, mult_c)
+                def hess_prod_c(d):
+                    return qn_product(qn_c, d, settings.hess_eval, blocks=qn_blocks)
+            elif cdtype is not None:
+                # a natively float32 Hessian operator: the callables run at
+                # the cast iterate, so the Krylov loop holds no float64
+                # operation
+                x_c = it.x.to(cdtype)
+                problem.check_follows_dtype(x_c)
+                mult_c = multipliers.to(cdtype)
 
-        newton = compute_newton_step(
-            data, it, aug_jac, ws, hess_prod, penalty, settings.max_newton_iterations,
-            use_gltr=use_gltr, compute_dtype=cdtype, hess_prod_compute=hess_prod_c)
+                def hess_prod_c(d):
+                    return problem.hess_prod(x_c, d, mult_c)
+
+            newton = compute_newton_step(
+                data, it, aug_jac, ws, hess_prod, penalty, settings.max_newton_iterations,
+                use_gltr=use_gltr, compute_dtype=cdtype, hess_prod_compute=hess_prod_c)
         if settings.linesearch == Linesearch.EXACT:
             trial_dir, alpha, model_trial = trial_linesearch_exact(
                 data, it, cauchy_dir, cauchy_merit, newton.direction, penalty,
@@ -452,11 +498,11 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
         soc_valid = _trial_ok(problem, x_soc, soc_it)
         soc_accepted = norm_ok & soc_ok & soc_valid
         soc_ratio = torch.where(soc_valid, soc_ratio, -1.0)
-        chosen_it = _tree_where(soc_accepted, soc_it, trial_it)
+        chosen_it = tree_where(soc_accepted, soc_it, trial_it)
         ratio = torch.where(soc_accepted, soc_ratio, ratio)
 
     final_accept = accepted | soc_accepted
-    sr_next = _tree_where(accepted, sr_accept, _tree_where(soc_accepted, sr_soc, sr_reject))
+    sr_next = tree_where(accepted, sr_accept, tree_where(soc_accepted, sr_soc, sr_reject))
 
     # ---- trust-radius updates -----------------------------------------
     trial_step_norm = torch.linalg.norm(trial_dir.primal)
@@ -477,7 +523,7 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
         int(StepType.REJECTED)).to(torch.int32)
 
     return SolverState(
-        it=_tree_where(final_accept, chosen_it, it),
+        it=tree_where(final_accept, chosen_it, it),
         trust_radius=new_trust_radius,
         lp_trust_radius=new_lp_trust_radius,
         penalty=penalty,
@@ -498,8 +544,14 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
         max_rayleigh=max_ray,
         lp_iterations=state.lp_iterations + cres.lp_iterations,
         boundary_step=boundary_step,
-        qn=state.qn,
-        qn_prev=state.qn_prev,
+        # the pre-step point for the next pair, pushed next iteration once
+        # the new duals are known
+        qn=qn,
+        qn_prev=(QNPrev(x=torch.where(final_accept, it.x, state.qn_prev.x),
+                        grad=torch.where(final_accept, it.obj_grad, state.qn_prev.grad),
+                        jac=torch.where(final_accept, it.cons_jac, state.qn_prev.jac),
+                        pending=final_accept)
+                 if use_qn else state.qn_prev),
         step_rule=sr_next,
         error_bound=state.error_bound,
         error_est=torch.where(final_accept, trial_err, state.error_est),
@@ -512,21 +564,26 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
     )
 
 
-def solve(problem: Problem, settings: Settings, x0: Any, max_iterations: int = 1000,
-          device: Any = None) -> SolverState:
-    """The full solve (solve.c:95-252; the reference's ``solve_jit``):
-    iterate while the status is RUNNING and the iteration count is below
-    ``max_iterations``; a solve that reaches the limit ends ABORT_ITER.
-    ``device=None`` means CUDA."""
-    problem = problem.to(resolve_device(device))
-    state = initial_state(problem, settings, x0, device=problem.device)
+def solve_from(problem: Problem, settings: Settings, state: SolverState,
+               max_iterations: int) -> SolverState:
+    """Iterate from ``state`` while the status is RUNNING and the iteration
+    count is below ``max_iterations`` (solve.c:95-252; the reference's
+    ``solve_jit``); a solve that reaches the limit ends ABORT_ITER."""
     while True:
         status, iteration = torch.stack([state.status, state.iteration]).tolist()
         if status != Status.RUNNING or iteration >= max_iterations:
             break
         state = perform_iteration(problem, settings, state)
-    if status == Status.RUNNING and iteration >= max_iterations:
-        state = dataclasses.replace(
-            state, status=torch.full((), int(Status.ABORT_ITER), dtype=torch.int32,
-                                     device=problem.device))
+    if status == Status.RUNNING:
+        state = dataclasses.replace(state, status=torch.full_like(state.status,
+                                                                  int(Status.ABORT_ITER)))
     return state
+
+
+def solve(problem: Problem, settings: Settings, x0: Any, max_iterations: int = 1000,
+          device: Any = None) -> SolverState:
+    """The full solve from ``x0``: ``initial_state`` + ``solve_from``.
+    ``device=None`` means CUDA."""
+    problem = problem.to(resolve_device(device))
+    state = initial_state(problem, settings, x0, device=problem.device)
+    return solve_from(problem, settings, state, max_iterations)

@@ -61,10 +61,11 @@ def test_port_and_chip_smoke_import_no_jax():
     # every module of the package: __init__, types, settings, convert, ocp,
     # device, kernels (+ _build), ops (+ block_tridiag, cyclic_reduction,
     # pallas_tridiag, pallas_chol_tridiag, kkt, simplex, lp_enum, tr_cg,
-    # gltr), the dense solve (problem, iterate, merit, cauchy, newton,
-    # linesearch, penalty, step_rule, measure, quasi_newton,
-    # problem_solver), and chip_smoke
-    assert int(proc.stdout.split()[-1]) >= 30, proc.stdout
+    # gltr, lsqr), the dense solve (problem, iterate, merit, cauchy, newton,
+    # linesearch, penalty, step_rule, measure, quasi_newton, parametric,
+    # gauss_newton, problem_solver), the entry point (solver, restoration,
+    # polish, scale, preprocessor), and chip_smoke
+    assert int(proc.stdout.split()[-1]) >= 38, proc.stdout
 
 
 def test_chip_smoke_without_card_prints_no_result():
@@ -109,6 +110,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
         tree_from_numpy(ProblemData, {})
     out = tx.solve(dense, Settings(), np.ones(2), device="cpu")
     assert int(out.status) == tx.Status.OPTIMAL and out.it.x.device.type == "cpu"
+
+    # the entry point, with scaling and presolve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tx.Solver(dense, np.ones(2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tx.Solver(dense, np.ones(2), Settings(enable_preprocessor=True), scaling="auto")
+    solver = tx.Solver(dense, np.ones(2), Settings(enable_preprocessor=True), scaling="auto",
+                       device="cpu")
+    assert solver.solve() == tx.Status.OPTIMAL
+    assert solver.iterate.x.device.type == "cpu" and solver.solution.shape == (2,)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

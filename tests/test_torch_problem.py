@@ -12,7 +12,6 @@ import pytest
 import torch
 
 import sleqp_tpu_torch as tx
-from sleqp_tpu_torch.problem import LSQFunc
 from torch_dense import boxqp, chainineq, chainqp, hs71, linear, quadcons, wachbieg
 from torch_parity import no_jax_cache_writes  # noqa: F401
 
@@ -139,8 +138,3 @@ def test_float64_closure_on_mixed_route_raises_type_error():
     good.check_follows_dtype(torch.zeros(2, dtype=torch.float32))
     with pytest.raises(TypeError, match="arguments' dtype"):
         tx.solve(bad, tx.Settings(compute_dtype="float32"), np.zeros(2), device="cpu")
-
-
-def test_lsq_func_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 8"):
-        LSQFunc(lambda x: x, num_variables=2, num_residuals=2)

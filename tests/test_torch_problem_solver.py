@@ -14,8 +14,8 @@ round a tie differently (ROADMAP.md queue C): on chainineq the port takes
 of the reference's own arithmetic that the order of a sum decides; there
 the counts are at most 3 apart, as on the mixed route.
 
-Also here: the branches that are not ported raise NotImplementedError
-naming their ROADMAP.md item, the iteration limit, the settings reader,
+Also here: the branches that are not ported (PDLP, dynamic functions)
+raise NotImplementedError naming their ROADMAP.md item, the iteration limit, the settings reader,
 and the round trip of a JAX solver state through the port."""
 
 import jax
@@ -30,9 +30,7 @@ from sleqp_tpu import Settings as JaxSettings
 from sleqp_tpu_torch import Settings, SolverState, Status, initial_state, perform_iteration, solve
 from sleqp_tpu_torch.convert import tree_from_numpy, tree_to_numpy
 from sleqp_tpu_torch.settings import read_settings_file, read_settings_string
-from sleqp_tpu_torch.types import (
-    HessEval, LPSolver, ParametricCauchy, StepRule, TRSolver,
-)
+from sleqp_tpu_torch.types import LPSolver, StepRule, TRSolver
 from torch_dense import boxqp, chainineq, chainqp, flat_jax, hs71, jax_to_numpy, mismatches
 from torch_parity import no_jax_cache_writes  # noqa: F401
 
@@ -76,9 +74,6 @@ def test_iteration_limit_gives_abort_iter():
 
 
 NOT_PORTED = {
-    "quasi_newton": (dict(hess_eval=HessEval.DAMPED_BFGS), "item 7"),
-    "sr1": (dict(hess_eval=HessEval.SR1), "item 7"),
-    "parametric": (dict(parametric_cauchy=ParametricCauchy.COARSE), "item 7"),
     "pdlp": (dict(lp_solver=LPSolver.PDLP), "item 6"),
     "pdlp_by_auto": (dict(pdlp_threshold=10), "item 6"),
 }
@@ -103,20 +98,8 @@ def test_dynamic_function_not_ported():
             raise AssertionError("not reached")
 
     tp.func.__class__ = Dynamic
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 8e"):
         solve(tp, Settings(), x0, device="cpu")
-
-
-def test_quasi_newton_products_not_ported():
-    from sleqp_tpu_torch import quasi_newton as qn
-
-    state = qn.qn_init(3, 5, torch.float64)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        qn.qn_product(state, torch.zeros(3), HessEval.DAMPED_BFGS)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        qn.qn_push(state, torch.zeros(3), torch.zeros(3), HessEval.SR1, True)
-    blocks = qn.qn_init(4, 2, torch.float64, blocks=((0, 1), (2, 4)))
-    assert [b.S.shape for b in blocks] == [(2, 1), (2, 2)]
 
 
 def test_enums_and_constants_match_jax():

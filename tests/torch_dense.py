@@ -199,3 +199,205 @@ def mismatches(port, ref, tol, skip=()):
         elif not np.array_equal(a, b):
             bad[key] = (a.tolist() if a.size <= 8 else "differs", b.tolist() if b.size <= 8 else "")
     return bad
+
+
+# ---- the problems of tests/fixtures.py and the suite, as port problems ----
+
+
+def rosenbrock():
+    def obj(x):
+        return (1.0 - x[0]) ** 2 + 100.0 * (x[1] - x[0] ** 2) ** 2
+
+    jp, x0, _ = fixtures.rosenbrock_problem()
+    return jp, tx.Problem(tx.Func(obj, 2), device="cpu"), np.array(x0)
+
+
+def quadfunc():
+    jp, x0, _ = fixtures.quadfunc_problem()
+    tp = tx.Problem(tx.Func(lambda x: x @ x, 2), var_lb=-10.0, var_ub=10.0, device="cpu")
+    return jp, tp, np.array(x0)
+
+
+def hs6():
+    jp, x0, _ = fixtures.hs6_problem()
+    tp = tx.Problem(tx.Func(lambda x: (1.0 - x[0]) ** 2, 2,
+                            cons=lambda x: (10.0 * (x[1] - x[0] ** 2))[None], num_cons=1),
+                    general_lb=0.0, general_ub=0.0, device="cpu")
+    return jp, tp, np.array(x0)
+
+
+def hs35():
+    def obj(x):
+        return (9.0 - 8.0 * x[0] - 6.0 * x[1] - 4.0 * x[2] + 2.0 * x[0] ** 2 + 2.0 * x[1] ** 2
+                + x[2] ** 2 + 2.0 * x[0] * x[1] + 2.0 * x[0] * x[2])
+
+    jp, x0, _ = fixtures.hs35_problem()
+    tp = tx.Problem(tx.Func(obj, 3, psd_hessian=True), var_lb=0.0, var_ub=np.inf,
+                    linear_coeffs=np.array([[1.0, 1.0, 2.0]]), linear_lb=-np.inf, linear_ub=3.0,
+                    device="cpu")
+    return jp, tp, np.array(x0)
+
+
+def rosenbrock_lsq():
+    jp, x0, _ = fixtures.rosenbrock_lsq_problem()
+    func = tx.LSQFunc(lambda x: torch.stack([1.0 - x[0], 10.0 * (x[1] - x[0] ** 2)]), 2, 2)
+    return jp, tx.Problem(func, device="cpu"), np.array(x0)
+
+
+def constrained_lsq():
+    """tests/test_lsq.py::test_constrained_lsq's problem."""
+    jfunc = jx.LSQFunc(lambda x: jnp.array([x[0] - 1.0, 10.0 * (x[1] - x[0] ** 2)]), 2, 2,
+                       cons=lambda x: jnp.array([x[0] + x[1]]), num_cons=1)
+    tfunc = tx.LSQFunc(lambda x: torch.stack([x[0] - 1.0, 10.0 * (x[1] - x[0] ** 2)]), 2, 2,
+                       cons=lambda x: (x[0] + x[1])[None], num_cons=1)
+    jp = jx.Problem(jfunc, general_lb=1.0, general_ub=1.0)
+    tp = tx.Problem(tfunc, general_lb=1.0, general_ub=1.0, device="cpu")
+    return jp, tp, np.zeros(2)
+
+
+def broydn(n):
+    """harness/medium.py::broydn100 at size n: the Broyden tridiagonal
+    system as least squares (LSQFunc), f* = 0."""
+
+    def jres(x):
+        xm = jnp.concatenate([jnp.zeros(1), x[:-1]])
+        xp = jnp.concatenate([x[1:], jnp.zeros(1)])
+        return (3.0 - 2.0 * x) * x - xm - 2.0 * xp + 1.0
+
+    def tres(x):
+        z = torch.zeros(1, dtype=x.dtype, device=x.device)
+        return (3.0 - 2.0 * x) * x - torch.cat([z, x[:-1]]) - 2.0 * torch.cat([x[1:], z]) + 1.0
+
+    jp = jx.Problem(jx.LSQFunc(jres, n, n))
+    tp = tx.Problem(tx.LSQFunc(tres, n, n), device="cpu")
+    return jp, tp, np.full(n, -1.0)
+
+
+def extrosnb(n):
+    """harness/medium.py::extrosnb100 at size n (extended Rosenbrock)."""
+
+    def jobj(x):
+        return jnp.sum(100.0 * (x[1::2] - x[0::2] ** 2) ** 2 + (1.0 - x[0::2]) ** 2)
+
+    def tobj(x):
+        return (100.0 * (x[1::2] - x[0::2] ** 2) ** 2 + (1.0 - x[0::2]) ** 2).sum()
+
+    return (jx.Problem(jx.Func(jobj, n)), tx.Problem(tx.Func(tobj, n), device="cpu"),
+            np.tile([-1.2, 1.0], n // 2))
+
+
+def projqp(n, m):
+    """harness/medium.py::projqp500 at size (n, m): min 1/2||x - t||^2 s.t.
+    A x = b (default_rng(17))."""
+    rng = np.random.default_rng(17)
+    A = rng.standard_normal((m, n))
+    t = rng.standard_normal(n)
+    b = rng.standard_normal(m)
+    tj, tt = jnp.asarray(t), torch.as_tensor(t)
+    jp = jx.Problem(jx.Func(lambda x: 0.5 * jnp.sum((x - tj) ** 2), n),
+                    linear_coeffs=jnp.asarray(A), linear_lb=jnp.asarray(b), linear_ub=jnp.asarray(b))
+    tp = tx.Problem(tx.Func(lambda x: 0.5 * ((x - tt.to(x)) ** 2).sum(), n), linear_coeffs=A,
+                    linear_lb=b, linear_ub=b, device="cpu")
+    return jp, tp, np.zeros(n)
+
+
+def hs64():
+    """harness/hs.py::hs64."""
+    from sleqp_tpu.harness.hs import get_problem
+
+    def obj(x):
+        return (5.0 * x[0] + 50000.0 / x[0] + 20.0 * x[1] + 72000.0 / x[1] + 10.0 * x[2]
+                + 144000.0 / x[2])
+
+    def cons(x):
+        return (1.0 - 4.0 / x[0] - 32.0 / x[1] - 120.0 / x[2])[None]
+
+    jp, x0, _ = get_problem("hs64")
+    tp = tx.Problem(tx.Func(obj, 3, cons=cons, num_cons=1), var_lb=1e-5, general_lb=0.0,
+                    general_ub=np.inf, device="cpu")
+    return jp, tp, np.array(x0)
+
+
+def hs62():
+    """harness/hs.py::hs62 (the suite solves it with scaling="auto")."""
+    from sleqp_tpu.harness.hs import get_problem
+
+    def obj(x):
+        s1 = (x[0] + x[1] + x[2] + 0.03) / (0.09 * x[0] + x[1] + x[2] + 0.03)
+        s2 = (x[1] + x[2] + 0.03) / (0.07 * x[1] + x[2] + 0.03)
+        s3 = (x[2] + 0.03) / (0.13 * x[2] + 0.03)
+        return -32.174 * (255.0 * torch.log(s1) + 280.0 * torch.log(s2)
+                          + 290.0 * torch.log(s3))
+
+    jp, x0, _ = get_problem("hs62")
+    tp = tx.Problem(tx.Func(obj, 3, cons=lambda x: (x.sum() - 1.0)[None], num_cons=1),
+                    var_lb=0.0, var_ub=1.0, general_lb=0.0, general_ub=0.0, device="cpu")
+    return jp, tp, np.array(x0)
+
+
+def hs42_linear():
+    """harness/hs.py::hs42 with its linear constraint x0 = 2 stated as a
+    linear row (the suite states it as a general constraint), so that the
+    preprocessor turns the row into a bound and fixes x0."""
+
+    def jobj(x):
+        return (x[0] - 1.0) ** 2 + (x[1] - 2.0) ** 2 + (x[2] - 3.0) ** 2 + (x[3] - 4.0) ** 2
+
+    row = np.array([[1.0, 0.0, 0.0, 0.0]])
+    jp = jx.Problem(jx.Func(jobj, 4, cons=lambda x: jnp.array([x[2] ** 2 + x[3] ** 2 - 2.0]),
+                            num_cons=1),
+                    general_lb=0.0, general_ub=0.0, linear_coeffs=jnp.asarray(row),
+                    linear_lb=2.0, linear_ub=2.0)
+    tp = tx.Problem(tx.Func(jobj, 4, cons=lambda x: (x[2] ** 2 + x[3] ** 2 - 2.0)[None],
+                            num_cons=1),
+                    general_lb=0.0, general_ub=0.0, linear_coeffs=row, linear_lb=2.0,
+                    linear_ub=2.0, device="cpu")
+    return jp, tp, np.ones(4)
+
+
+# ---- one port iteration from every JAX iterate ------------------------------
+
+NONLIN = ("measure.obj_nonlin", "measure.cons_nonlin", "measure.lag_nonlin")
+
+
+def jax_states(jp, settings, x0, limit=100):
+    """JAX's states from the start to the end of its solve (one jitted
+    perform_iteration)."""
+    import sleqp_tpu.problem_solver as jps
+
+    step = jax.jit(lambda s: jps.perform_iteration(jp, settings, s))
+    states = [jps.initial_state(jp, settings, jnp.asarray(x0))]
+    while int(states[-1].status) == tx.Status.RUNNING and len(states) < limit:
+        states.append(step(states[-1]))
+    return states
+
+
+def iteration_mismatches(tp, settings, states, tol=1e-9):
+    """{k: mismatching fields} of one port perform_iteration from each JAX
+    state against JAX's next state: every float to ``tol``, everything else
+    exactly.  Two kinds of field divide a rounding of the merit's terms,
+    ~1e-13 (1 + |f| + |c|_1), by a small quantity, and are held to that
+    bound: the nonlinearity measures (by ||d||^2) and the reduction ratio
+    (by the model reduction)."""
+    from sleqp_tpu_torch import problem_solver as tps
+
+    bad = {}
+    for k, (before, ref_after) in enumerate(zip(states[:-1], states[1:])):
+        after = tps.perform_iteration(tp, settings, port_state(before))
+        got, ref = flat_port(after), flat_jax(ref_after)
+        ratio = "last_reduction_ratio"
+        diff = mismatches(got, ref, tol, skip=NONLIN + (ratio,))
+        rounding = 1e-13 * (1.0 + abs(float(ref["it.obj_val"])) + np.abs(ref["it.cons_val"]).sum())
+        d2 = float(ref["measure.step_norm"]) ** 2
+        for key in NONLIN:
+            if d2 > 0 and abs(float(got[key]) - float(ref[key])) > rounding / d2 + tol:
+                diff[key] = float(got[key]) - float(ref[key])
+        model = abs(float(ref["last_model_reduction"]))
+        ratio_tol = tol * max(1.0, abs(float(ref[ratio])))
+        if model > 0:
+            ratio_tol += rounding * (1.0 + abs(float(ref[ratio]))) / model
+        if not abs(float(got[ratio]) - float(ref[ratio])) <= ratio_tol:
+            diff[ratio] = float(got[ratio]) - float(ref[ratio])
+        if diff:
+            bad[k] = diff
+    return bad

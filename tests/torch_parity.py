@@ -25,12 +25,16 @@ from sleqp_tpu_torch.convert import problem_arrays_from_numpy
 def no_jax_cache_writes():
     """Keep these modules' compilations out of the persistent cache in the
     repository (tests/conftest.py points it there): JAX reads the size
-    threshold at every write, and no executable reaches 2**62 bytes."""
+    threshold at every write, and no executable reaches 2**62 bytes.  At
+    the end of the module its compiled programs are dropped: XLA's CPU
+    compiler crashes once one process holds too many of them (see
+    tests/conftest.py), and a test worker runs many modules in turn."""
     key = "jax_persistent_cache_min_entry_size_bytes"
     old = getattr(jax.config, key)
     jax.config.update(key, 2**62)
     yield
     jax.config.update(key, old)
+    jax.clear_caches()
 
 
 def _load_emulation_tool():
