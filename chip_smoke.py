@@ -49,11 +49,25 @@ run from a checkout of the repository, on a machine with a CUDA device and
    against the r5 CSV or a constant measured with the JAX package, with
    seconds per solve, ms per iteration and host reads per iteration.  It
    launches none of the six kernels;
-9. one JSON line describing each kernel, then the result line.
+9. the PDLP Cauchy LP: ``solve_cauchy_lp`` on the LP of chainineq
+   (``harness/medium.py``'s formula and seed) at n = 2100 (N = n + 3m =
+   8397 columns, so ``LPSolver.AUTO`` routes it to PDLP), on the card and
+   on the CPU, each held to scipy HiGHS's objective of the same LP, the
+   card to the CPU's iterations and step; ms per PDHG iteration and per
+   LP, and host reads per LP; then ``Solver`` on hs35 with
+   ``lp_solver=PDLP``;
+10. dynamic functions: ``tests/test_dyn.py``'s Rosenbrock and constrained
+    problems through ``Solver`` on the card and the CPU (OPTIMAL, x, the
+    error bound tightened);
+11. the suite sweep (``tools/torch_suite.py``) on the card: the 98
+    non-banded rows of the r5 sweep on the float64 route and its 94
+    optimal rows on the mixed route, each through the end gate against
+    ``artifacts/suite_all_{f64,mixed}_r5.csv``;
+12. one JSON line describing each kernel, then the result line.
 
 Phases 3, 5 and 6 are the main paths of the kernels: the launch counts are
 cleared just before each and read just after, and the kernels line reports
-their sum.  Phases 7 and 8 are read the same way and must launch none of
+their sum.  Phases 7 to 11 are read the same way and must launch none of
 them.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -79,22 +93,26 @@ from sleqp_tpu_torch import (  # noqa: E402
     BlockStructuredProblem,
     Func,
     HessEval,
-    LSQFunc,
+    LPSolver,
     ParametricCauchy,
     Problem,
     Settings,
     Solver,
     Status,
+    create_iterate,
     ocp_initial_state,
     ocp_perform_iteration,
     ocp_solve,
     solve,
 )
-from sleqp_tpu_torch import gauss_newton  # noqa: E402
+from sleqp_tpu_torch import cauchy, gauss_newton  # noqa: E402
+from sleqp_tpu_torch.dyn import DynFunc  # noqa: E402
 from sleqp_tpu_torch.kernels import _build  # noqa: E402
 from sleqp_tpu_torch.ops import cyclic_reduction as cr  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_tridiag as pt  # noqa: E402
+from sleqp_tpu_torch.harness.driver import ALL_PROBLEMS  # noqa: E402
+from sleqp_tpu_torch.harness.driver import get_problem as harness_problem  # noqa: E402
 from sleqp_tpu_torch.ops.block_tridiag import block_tridiag_solve  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA data
@@ -394,8 +412,9 @@ DENSE_REF = {
 
 
 def dense_problem(name, device):
-    """(Problem, x0) of bench.py's HS71, or of harness/medium.py's
-    chainineq200 (default_rng(41)) or boxqp1000 (default_rng(7))."""
+    """(Problem, x0) of bench.py's HS71, or of the port's suite harness
+    (``sleqp_tpu_torch/harness``: chainineq200, boxqp1000 and the others
+    with the reference's data and seeds)."""
     if name == "hs71":
         def obj(x):
             return x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2]
@@ -406,16 +425,8 @@ def dense_problem(name, device):
         problem = Problem(Func(obj, 4, cons=cons, num_cons=2), var_lb=1.0, var_ub=5.0,
                           general_lb=[25.0, 40.0], general_ub=[float("inf"), 40.0], device=device)
         return problem, np.array([1.0, 5.0, 5.0, 1.0])
-    if name == "chainineq200":
-        n = 200
-        t = torch.tensor(np.cumsum(np.random.default_rng(41).standard_normal(n)) * 0.2, device=device)
-        func = Func(lambda x: 0.5 * ((x - t.to(x)) ** 2).sum(), n,
-                    cons=lambda x: x[1:] - x[:-1], num_cons=n - 1)
-        return Problem(func, general_lb=-0.05, general_ub=0.05, device=device), np.zeros(n)
-    n = 1000
-    c = torch.tensor(np.random.default_rng(7).uniform(-0.5, 1.5, n), device=device)
-    func = Func(lambda x: ((x - c.to(x)) ** 2).sum(), n, psd_hessian=True)
-    return Problem(func, var_lb=0.0, var_ub=1.0, device=device), np.full(n, 0.5)
+    problem, x0, _ = harness_problem(name, device)
+    return problem, x0
 
 
 def tensors_of(obj):
@@ -547,41 +558,12 @@ SOLVER_RUNS = [
 
 
 def solver_problem(name, device):
-    """(Problem, x0) of a phase 8 run."""
-    if name in DENSE_REF:
-        return dense_problem(name, device)
+    """(Problem, x0) of a phase 8 run: HS71 from bench.py, the suite's
+    problems from the port's harness, and by hand the two the harness
+    lacks (Waechter-Biegler, hs42 with a linear row)."""
     inf = float("inf")
-    if name == "projqp500":
-        n, m = 500, 20
-        rng = np.random.default_rng(17)
-        A, t, b = rng.standard_normal((m, n)), rng.standard_normal(n), rng.standard_normal(m)
-        tt = torch.tensor(t, device=device)
-        func = Func(lambda x: 0.5 * ((x - tt.to(x)) ** 2).sum(), n)
-        return Problem(func, linear_coeffs=A, linear_lb=b, linear_ub=b, device=device), np.zeros(n)
-    if name == "broydn100":
-        n = 100
-
-        def residuals(x):
-            z = torch.zeros(1, dtype=x.dtype, device=x.device)
-            return (3.0 - 2.0 * x) * x - torch.cat([z, x[:-1]]) - 2.0 * torch.cat([x[1:], z]) + 1.0
-
-        return Problem(LSQFunc(residuals, n, n), device=device), np.full(n, -1.0)
-    if name == "extrosnb100":
-        n = 100
-        func = Func(lambda x: (100.0 * (x[1::2] - x[0::2] ** 2) ** 2
-                               + (1.0 - x[0::2]) ** 2).sum(), n)
-        return Problem(func, device=device), np.tile([-1.2, 1.0], n // 2)
-    if name == "hs62":
-        def obj(x):
-            s1 = (x[0] + x[1] + x[2] + 0.03) / (0.09 * x[0] + x[1] + x[2] + 0.03)
-            s2 = (x[1] + x[2] + 0.03) / (0.07 * x[1] + x[2] + 0.03)
-            s3 = (x[2] + 0.03) / (0.13 * x[2] + 0.03)
-            return -32.174 * (255.0 * torch.log(s1) + 280.0 * torch.log(s2)
-                              + 290.0 * torch.log(s3))
-
-        func = Func(obj, 3, cons=lambda x: (x.sum() - 1.0)[None], num_cons=1)
-        return (Problem(func, var_lb=0.0, var_ub=1.0, general_lb=0.0, general_ub=0.0,
-                        device=device), np.array([0.7, 0.2, 0.1]))
+    if name not in ("wachbieg", "hs42_linear"):
+        return dense_problem(name, device)
     if name == "wachbieg":
         func = Func(lambda x: x[0], 3, num_cons=2,
                     cons=lambda x: torch.stack([x[0] ** 2 - x[1] - 1.0, x[0] - x[2] - 0.5]))
@@ -687,6 +669,221 @@ def solver_phase(log):
             if pre is not None:
                 check(len(pre.fixed_vars) > 0 and len(pre.removed_linear) > 0,
                       f"{label}: the preprocessor removed nothing")
+
+
+# Phase 9: the PDLP Cauchy LP.  chainineq's family (harness/medium.py's
+# chainineq200 formula and seed, default_rng(41)) at n = 2100: m = 2099,
+# N = n + 3m = 8397 LP columns, over Settings().pdlp_threshold (8192), so
+# AUTO routes its Cauchy LP to PDLP.  The LP at x0 = 0 with the initial LP
+# radius 0.8/sqrt(n) and penalty 10.  HiGHS (scipy) solves the same LP as
+# the reference objective, held to tests/test_pdlp.py's bar at its
+# tolerance (5e-4 at 1e-7; the LP is solved to Settings().pdlp_tol).
+PDLP_N = 2100
+PDLP_OBJ_ATOL = 5e-4
+
+
+def pdlp_lp(device):
+    """(problem, iterate, radius, penalty) of the phase 9 LP on ``device``."""
+    n = PDLP_N
+    t = torch.tensor(np.cumsum(np.random.default_rng(41).standard_normal(n)) * 0.2, device=device)
+    func = Func(lambda x: 0.5 * ((x - t.to(x)) ** 2).sum(), n, cons=lambda x: x[1:] - x[:-1],
+                num_cons=n - 1)
+    problem = Problem(func, general_lb=-0.05, general_ub=0.05, device=device)
+    it = create_iterate(problem, np.zeros(n))
+    f = functools.partial(torch.tensor, dtype=torch.float64, device=device)
+    return problem, it, f(0.8 / np.sqrt(n)), f(10.0)
+
+
+def highs_objective(problem, it, radius, penalty):
+    """The optimal objective of the same LP by scipy's HiGHS."""
+    from scipy.optimize import linprog
+    from scipy.sparse import csr_matrix
+
+    A, lb, ub = cauchy._lp_data(problem.data, it, radius)
+    c = cauchy._objective(it, penalty, False)
+    A, lb, ub, c = (v.cpu().numpy() for v in (A, lb, ub, c))
+    inf = cauchy.INF_THRESHOLD
+    bounds = list(zip(np.where(lb <= -inf, None, lb), np.where(ub >= inf, None, ub)))
+    res = linprog(c, A_eq=csr_matrix(A), b_eq=np.zeros(A.shape[0]), bounds=bounds,
+                  method="highs")
+    check(res.status == 0, f"HiGHS did not solve the PDLP LP: {res.message}")
+    return float(res.fun)
+
+
+def count_bool_reads(fn):
+    """(reads of a 0-d tensor's truth value while ``fn()`` runs on the CPU,
+    its result): the flags PDLP reads, one a block of PDHG iterations."""
+    reads = []
+    real = torch.Tensor.__bool__
+
+    def counted(self):
+        reads.append(1)
+        return real(self)
+
+    torch.Tensor.__bool__ = counted
+    try:
+        out = fn()
+    finally:
+        torch.Tensor.__bool__ = real
+    return len(reads), out
+
+
+def synchronize(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def pdlp_phase(log, card="cuda"):
+    """Phase 9: the PDLP Cauchy LP on the card and on the CPU, and a whole
+    Solver solve with lp_solver=PDLP.  ``card="cpu"`` rehearses the phase
+    without a card (its host-read count then fails)."""
+    settings = Settings()
+    lps = [pdlp_lp(card), pdlp_lp("cpu")]
+    problem, it, radius, penalty = lps[0]
+    n, m = problem.num_variables, problem.num_cons
+    backend = cauchy.resolved_lp_solver(settings, n, m)
+    check(backend == LPSolver.PDLP, f"AUTO routes the LP (N = {n + 3 * m}) to {backend.name}")
+
+    def run(k):
+        p, i, r, pen = lps[k]
+        return cauchy.solve_cauchy_lp(p.data, i, r, pen,
+                                      cauchy.empty_basis(n, m, device=p.device),
+                                      lp_solver=backend, pdlp_tol=settings.pdlp_tol)
+
+    run(0)  # set-up on first use, uncounted
+    times = []
+    for k, dev in enumerate((card, "cpu")):
+        synchronize(dev)
+        t = time.perf_counter()
+        res = run(k)
+        synchronize(dev)
+        times.append((time.perf_counter() - t, res))
+    reads_card, _ = count_host_reads(lambda: run(0))
+    reads_cpu, _ = count_bool_reads(lambda: run(1))
+    (gpu_s, out), (cpu_s, ref) = times
+    iters, cpu_iters = int(out.lp_iterations), int(ref.lp_iterations)
+    f_highs = highs_objective(*lps[1])
+    obj, cpu_obj = float(out.lp_obj), float(ref.lp_obj)
+    dx = float((out.lp_step.cpu() - ref.lp_step).abs().max())
+    a_bytes = m * (n + 3 * m) * 8
+    log(9, f"PDLP Cauchy LP (chainineq, n = {n}, m = {m}, N = {n + 3 * m}, A {a_bytes / 1e6:.1f} "
+           f"MB float64): state card {int(out.lp_state)}, CPU {int(ref.lp_state)}; PDHG iterations "
+           f"card {iters}, CPU {cpu_iters}; objective card {obj:.12g}, CPU {cpu_obj:.12g}, HiGHS "
+           f"{f_highs:.12g}; max |d_card - d_cpu| {dx:.3e}; card {1e3 * gpu_s:.2f} ms per LP, "
+           f"{1e3 * gpu_s / max(iters, 1):.4f} ms per PDHG iteration, host reads {reads_card} "
+           f"per LP; CPU {1e3 * cpu_s:.2f} ms per LP, {1e3 * cpu_s / max(cpu_iters, 1):.4f} ms "
+           f"per PDHG iteration, flag reads {reads_cpu} per LP")
+    check(int(out.lp_state) == 0 and int(ref.lp_state) == 0, "the PDLP LP is not OPTIMAL")
+    check(iters == cpu_iters, f"PDLP iterations differ: card {iters}, CPU {cpu_iters}")
+    check(dx <= 1e-8, f"the PDLP step differs from the CPU's by {dx:.3e}")
+    for what, value in (("card", obj), ("CPU", cpu_obj)):
+        check(abs(value - f_highs) <= PDLP_OBJ_ATOL,
+              f"PDLP objective ({what}) {value} against HiGHS {f_highs}")
+    check(torch.equal(out.var_states.cpu(), ref.var_states)
+          and torch.equal(out.cons_states.cpu(), ref.cons_states),
+          "the PDLP working set differs between the card and the CPU")
+
+    # a whole solve on PDLP (tests/test_pdlp.py::test_pdlp_backend_full_solve)
+    pdlp_settings = Settings(lp_solver=LPSolver.PDLP, pdlp_tol=1e-10)
+    results = []
+    for dev in (card, "cpu"):
+        hs35, x0, f_opt = harness_problem("hs35", dev)
+        solver = Solver(hs35, x0, pdlp_settings, device=dev)
+        t = time.perf_counter()
+        status = solver.solve(max_iterations=100)
+        results.append((solver, status, time.perf_counter() - t))
+    (solver, status, gpu_s), (ref_solver, ref_status, cpu_s) = results
+    log(9, f"hs35 Solver on PDLP (pdlp_tol 1e-10): {status.name} obj={solver.obj_val:.11g} "
+           f"(published {f_opt:.11g}); iterations card {solver.iterations}, CPU "
+           f"{ref_solver.iterations}; card {gpu_s:.3f} s, CPU {cpu_s:.3f} s")
+    check(status == Status.OPTIMAL and ref_status == Status.OPTIMAL, "hs35 on PDLP: not OPTIMAL")
+    check(abs(solver.obj_val - f_opt) <= 1e-5 * (1.0 + abs(f_opt)),
+          f"hs35 on PDLP: objective {solver.obj_val} against {f_opt}")
+    check(solver.iterations == ref_solver.iterations, "hs35 on PDLP: iterations differ")
+
+
+# Phase 10: dynamic functions, tests/test_dyn.py's two problems through
+# Solver, each held as that test holds it (x to 1e-4 and 1e-3).
+def dyn_problems(device):
+    def rosenbrock(x, error_bound, obj_weight, cons_weights):
+        err_f = 0.5 * error_bound / torch.clamp(obj_weight, min=1.0)
+        true = (1.0 - x[0]) ** 2 + 100.0 * (x[1] - x[0] ** 2) ** 2
+        return true + err_f * torch.sin(37.0 * x[0] + 53.0 * x[1]), x.new_zeros(0), obj_weight * err_f
+
+    def constrained(x, error_bound, obj_weight, cons_weights):
+        denom = torch.clamp(obj_weight + cons_weights.sum(), min=1.0)
+        err = 0.4 * error_bound / denom
+        obj = x[0] ** 2 + x[1] ** 2 + err * torch.cos(17.0 * x[0])
+        cons = torch.stack([x[0] + x[1] + err * torch.sin(13.0 * x[1])])
+        return obj, cons, (obj_weight + cons_weights.sum()) * err
+
+    return {
+        "rosenbrock": (Problem(DynFunc(rosenbrock, 2), device=device), np.zeros(2),
+                       [1.0, 1.0], 1e-4),
+        "constrained": (Problem(DynFunc(constrained, 2, num_cons=1), general_lb=1.0,
+                                general_ub=float("inf"), device=device),
+                        np.array([2.0, 2.0]), [0.5, 0.5], 1e-3),
+    }
+
+
+def dyn_phase(log, card="cuda"):
+    """Phase 10: the two dynamic problems through Solver on the card and on
+    the CPU."""
+    cpu = dyn_problems("cpu")
+    for name, (problem, x0, x_ref, atol) in dyn_problems(card).items():
+        runs = []
+        for dev, p in ((card, problem), ("cpu", cpu[name][0])):
+            solver = Solver(p, x0, Settings(), device=dev)
+            synchronize(dev)
+            t = time.perf_counter()
+            status = solver.solve(max_iterations=500)
+            synchronize(dev)
+            runs.append((solver, status, time.perf_counter() - t))
+        (solver, status, gpu_s), (ref, ref_status, cpu_s) = runs
+        bound = float(solver.state.error_bound)
+        x = solver.solution
+        log(10, f"dynamic {name}: {status.name} x={np.array2string(x, precision=8)}; error bound "
+                f"1 -> {bound:.3e}; iterations card {solver.iterations}, CPU {ref.iterations}; "
+                f"card {gpu_s:.3f} s, {1e3 * gpu_s / max(solver.iterations, 1):.2f} ms per "
+                f"iteration; CPU {cpu_s:.3f} s")
+        check(status == Status.OPTIMAL and ref_status == Status.OPTIMAL,
+              f"dynamic {name}: not OPTIMAL")
+        check(np.abs(x - np.array(x_ref)).max() <= atol, f"dynamic {name}: x = {x}")
+        check(bound < 1.0, f"dynamic {name}: the error bound was not tightened")
+        check(solver.iterations == ref.iterations, f"dynamic {name}: iterations differ")
+
+
+# Phase 11: the suite sweep (tools/torch_suite.py) on the card, held to the
+# r5 CSVs: all 98 non-banded rows on the float64 route; on the mixed route
+# the 94 rows whose r5 row is optimal (its four iter_limit rows, 1000
+# iterations each, run in the CPU sweep only).
+def load_suite_tool():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "torch_suite.py")
+    spec = importlib.util.spec_from_file_location("torch_suite", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def suite_phase(log, card="cuda", names=None):
+    """Phase 11: the suite sweep on the card (``names``: a subset, to
+    rehearse it)."""
+    tool = load_suite_tool()
+    for route in ("float64", "mixed"):
+        oracle = tool.read_rows(tool.ORACLES[route])
+        rows_of = [n for n in oracle if n in ALL_PROBLEMS and n in (names or ALL_PROBLEMS)
+                   and (route == "float64" or oracle[n][3] == "optimal")]
+        rows, result, seconds = tool.run(route, card, rows_of, verbose=False)
+        log(11, f"suite {route} on the card: {len(rows)} rows in {seconds:.1f} s, "
+                f"{result['iterations']} iterations (r5 {result['iterations_r5']}), "
+                f"{1e3 * seconds / max(result['iterations'], 1):.1f} ms per iteration; solved "
+                f"{result['solved']} (r5 {result['solved_r5']}); status differs "
+                f"{result['status']}; objective differs {result['objective']}; named ties "
+                f"{result['ties']}; more than "
+                f"{tool.ITER_SLACK} iterations from r5 {result['iterations_far']}")
+        check(result["ok"], f"the {route} suite on the card fails the end gate")
 
 
 def main():
@@ -1036,14 +1233,35 @@ def main():
     check(not any(launches_solver.values()),
           f"the Solver phase launched a kernel of B1-B6: {launches_solver}")
 
-    # -- phase 9: report ---------------------------------------------------
+    # -- phase 9: the PDLP Cauchy LP (no kernel of B1-B6) ---------------
+    clear_counts()
+    pdlp_phase(log)
+    launches_pdlp = read_counts()
+    check(not any(launches_pdlp.values()),
+          f"the PDLP phase launched a kernel of B1-B6: {launches_pdlp}")
+
+    # -- phase 10: dynamic functions (no kernel of B1-B6) ---------------
+    clear_counts()
+    dyn_phase(log)
+    launches_dyn = read_counts()
+    check(not any(launches_dyn.values()),
+          f"the dynamic-function phase launched a kernel of B1-B6: {launches_dyn}")
+
+    # -- phase 11: the suite sweep on both routes (no kernel of B1-B6) ----
+    clear_counts()
+    suite_phase(log)
+    launches_suite = read_counts()
+    check(not any(launches_suite.values()),
+          f"the suite phase launched a kernel of B1-B6: {launches_suite}")
+
+    # -- phase 12: report --------------------------------------------------
     kernels = [
         dict(rec, launches=launches[name] + launches_kkt[name] + launches_pal[name])
         for name, rec in results.items()
     ]
     check(len(kernels) == 6 and all(r["launches"] > 0 for r in kernels),
           f"a kernel was not launched on the main paths: {kernels}")
-    log(9, "all checks passed")
+    log(12, "all checks passed")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

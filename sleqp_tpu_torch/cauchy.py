@@ -22,9 +22,9 @@ is primal infeasible under the new data is re-optimized by dual pivots or
 repaired by re-slacking the row block.  Each ``lax.cond`` of the reference
 is a Python branch on one scalar read from the device.
 
-The first-order PDLP backend (``LPSolver.PDLP``) is not ported yet
-(ROADMAP.md queue A item 6) and raises ``NotImplementedError``, also when
-``LPSolver.AUTO`` would pick it.
+The first-order backend (``LPSolver.PDLP``, ``ops/pdlp.py``) has no simplex
+basis: its statuses are synthesized from the PDHG solution, the saved
+basis passes through untouched, and no reduced resolve runs.
 """
 
 from __future__ import annotations
@@ -34,17 +34,11 @@ import dataclasses
 import torch
 
 from .iterate import Iterate
-from .ops import lp_enum, simplex
+from .ops import lp_enum, pdlp, simplex
 from .problem import ProblemData
 from .types import INF, INF_THRESHOLD, ActiveState, BaseStat, LPSolver
 
 Tensor = torch.Tensor
-
-PDLP_NOT_PORTED = (
-    "the PDLP Cauchy LP backend (ops/pdlp.py) is not ported yet (ROADMAP.md "
-    "queue A item 6); LPSolver.AUTO picks it at n + 3m >= pdlp_threshold"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class CauchyBasis:
@@ -236,16 +230,32 @@ def solve_cauchy_lp(
     of the reduced LP with the slacks frozen at their optimal values
     (standard_cauchy.c:566-788).  ``compute_dtype=torch.float32`` runs the
     pivoting loops in float32 and finishes the solve in the state dtype
-    (``simplex.polish_full_precision``).
+    (``simplex.polish_full_precision``); the PDLP backend ignores it and
+    runs in the state dtype.
     """
-    if lp_solver == LPSolver.PDLP:
-        raise NotImplementedError(PDLP_NOT_PORTED)
     m, n = it.cons_jac.shape
     trust_radius = torch.as_tensor(trust_radius, dtype=it.x.dtype, device=it.x.device)
     penalty = torch.as_tensor(penalty, dtype=it.x.dtype, device=it.x.device)
     A, lb, ub = _lp_data(data, it, trust_radius)
     c = _objective(it, penalty, feasibility_mode)
     zero_iters = _i32(0, A)
+
+    if lp_solver == LPSolver.PDLP:
+        # restarted-average PDHG: no simplex basis; the statuses are
+        # synthesized and the saved basis passes through untouched
+        pres = pdlp.solve(A, c, lb, ub,
+                          max_iterations=max_iterations if max_iterations > 0 else 20000,
+                          tol=pdlp_tol)
+        res = simplex.SimplexResult(
+            x=pres.x, duals=pres.duals, reduced_costs=pres.reduced_costs, status=pres.status,
+            basis=saved_basis.basis, obj=pres.obj, state=pres.state,
+            iterations=pres.iterations,
+            condition=torch.ones((), dtype=A.dtype, device=A.device))
+        return _extract(
+            data, it, trust_radius, penalty, res, saved_basis, A, lb, ub, c, n, m,
+            settings_eps=settings_eps, feasibility_mode=feasibility_mode,
+            lp_resolves=False, max_iterations=0, dual_iters=zero_iters,
+            keep_saved_basis=True)
 
     if lp_solver == LPSolver.ENUM:
         # every basis of the tiny LP at once; no warm start, and the
@@ -309,10 +319,12 @@ def _extract(
     lp_resolves: bool,
     max_iterations: int,
     dual_iters: Tensor,
+    keep_saved_basis: bool = False,
     compute_dtype=None,
 ) -> CauchyResult:
     """Working set, duals and infeasibility from an LP solution
-    (standard_cauchy.c:960-1462)."""
+    (standard_cauchy.c:960-1462); ``keep_saved_basis`` (the PDLP backend)
+    returns the caller's saved basis in place of the LP's."""
     d = res.x[:n]
     slack_sum = res.x[n : n + 2 * m].sum()
 
@@ -364,8 +376,11 @@ def _extract(
     feasible_direction = torch.where(w_status != BaseStat.BASIC, zero_slacks, True).all()
     locally_infeasible = ~(feasible_direction | tr_active)
 
-    new_basis = CauchyBasis(basis=res.basis, status=res.status,
-                            valid=res.state == simplex.OPTIMAL)
+    if keep_saved_basis:
+        new_basis = saved_basis
+    else:
+        new_basis = CauchyBasis(basis=res.basis, status=res.status,
+                                valid=res.state == simplex.OPTIMAL)
 
     lp_obj = torch.dot(c[:n], d) + penalty * slack_sum
     return CauchyResult(

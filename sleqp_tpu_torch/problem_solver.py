@@ -22,9 +22,9 @@ iteration returns its stopped state without evaluating the trial point.
 Quasi-Newton Hessians (``hess_eval != EXACT``) push their pair on one
 host read of ``qn_prev.pending``; the parametric Cauchy sweep and the
 Gauss-Newton step of an ``LSQFunc`` read one stop flag per LP re-solve or
-LSQR step.  Not ported yet, each raising ``NotImplementedError`` that names
-its ROADMAP.md item: the PDLP LP backend (item 6) and dynamic (inexact)
-functions (item 8e).
+LSQR step, and the PDLP LP backend one flag per block of PDHG iterations.
+A dynamic (inexact) function (``dyn.py``) re-evaluates the iterate on one
+host read of ``refresh_eval``.
 """
 
 from __future__ import annotations
@@ -35,7 +35,6 @@ from typing import Any
 import torch
 
 from .cauchy import (
-    PDLP_NOT_PORTED,
     CauchyBasis,
     _trim_duals,
     empty_basis,
@@ -44,6 +43,7 @@ from .cauchy import (
     solve_cauchy_lp,
 )
 from .device import resolve_device
+from .dyn import DynFunc, required_error_bound
 from .gauss_newton import compute_gauss_newton_step
 from .iterate import (
     Iterate,
@@ -70,7 +70,6 @@ from .types import (
     HessEval,
     InitialTRChoice,
     Linesearch,
-    LPSolver,
     ParametricCauchy,
     Status,
     StepType,
@@ -91,20 +90,6 @@ SOC_SAFEGUARD_FACTOR = 10.0
 def _aug_jac_method(settings: Settings) -> str:
     """AUG_JAC_METHOD to a factorization route (trial_point.c:64-130)."""
     return "direct" if settings.aug_jac_method == AugJacMethod.DIRECT else "reduced"
-
-
-DYN_NOT_PORTED = (
-    "dynamic (inexact) functions (dyn.py) are not ported yet "
-    "(ROADMAP.md queue A item 8e)")
-
-
-def _check_in_slice(problem: Problem, settings: Settings) -> None:
-    """Raise ``NotImplementedError`` for a branch that is not ported yet."""
-    if hasattr(problem.func, "eval_all_dyn"):
-        raise NotImplementedError(DYN_NOT_PORTED)
-    m = problem.num_cons
-    if m > 0 and resolved_lp_solver(settings, problem.num_variables, m) == LPSolver.PDLP:
-        raise NotImplementedError(PDLP_NOT_PORTED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +121,7 @@ class SolverState:
     qn: Any  # QNState, or a tuple of them per Hessian block
     qn_prev: QNPrev
     step_rule: StepRuleState
-    # dynamic (inexact) function state; inert in this port
+    # dynamic (inexact) function state (dyn.py); inert otherwise
     error_bound: Tensor
     error_est: Tensor
     refresh_eval: Tensor  # bool
@@ -155,7 +140,6 @@ def initial_state(problem: Problem, settings: Settings, x0: Any,
                   device: Any = None) -> SolverState:
     """Initial radii and penalty (problem_solver.c:83-118).  ``device=None``
     means CUDA; the problem is moved there."""
-    _check_in_slice(problem, settings)
     problem = problem.to(resolve_device(device))
     dev = problem.device
     it = create_iterate(problem, x0)
@@ -249,7 +233,6 @@ def _trial_ok(problem: Problem, x: Tensor, trial: Iterate) -> Tensor:
 def perform_iteration(problem: Problem, settings: Settings, state: SolverState) -> SolverState:
     """One SQP iteration (problem_solver/iteration.c:350-601) on the
     problem's device."""
-    _check_in_slice(problem, settings)
     data = problem.data
     it = state.it
     n = problem.num_variables
@@ -261,6 +244,14 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
     # certified quantities (residuals, duals, merit) in the state dtype
     cdtype = (torch.float32
               if settings.compute_dtype == "float32" and dtype != torch.float32 else None)
+
+    # ---- dynamic functions: refresh the iterate at a tightened bound --
+    is_dynamic = isinstance(problem.func, DynFunc)
+    iterate_err = state.error_est
+    if is_dynamic and bool(state.refresh_eval):
+        obj, grad, cons, jac, iterate_err = problem.func.eval_all_dyn(
+            it.x, state.error_bound, state.penalty)
+        it = dataclasses.replace(it, obj_val=obj, obj_grad=grad, cons_val=cons, cons_jac=jac)
 
     # ---- feasibility bookkeeping + global penalty reset ---------------
     feas_now = max_violation(data, it.cons_val)
@@ -339,6 +330,10 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
     if use_qn:
         def hess_prod(d):
             return qn_product(qn, d, settings.hess_eval, blocks=qn_blocks)
+    elif is_dynamic:
+        def hess_prod(d):
+            return problem.func.hess_prod_dyn(it.x, d, multipliers[: problem.num_general],
+                                              state.error_bound, penalty)
     else:
         def hess_prod(d):
             return problem.hess_prod(it.x, d, multipliers)
@@ -389,7 +384,7 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
 
                 def hess_prod_c(d):
                     return qn_product(qn_c, d, settings.hess_eval, blocks=qn_blocks)
-            elif cdtype is not None:
+            elif cdtype is not None and not is_dynamic:
                 # a natively float32 Hessian operator: the callables run at
                 # the cast iterate, so the Krylov loop holds no float64
                 # operation
@@ -466,8 +461,18 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
 
     # ---- trial evaluation + step rule ---------------------------------
     x_trial = problem.clip_to_bounds(it.x + trial_dir.primal)
-    trial_it = create_iterate(problem, x_trial)
-    trial_err = torch.zeros((), dtype=dtype, device=dev)
+    if is_dynamic:
+        t_obj, t_grad, t_cons, t_jac, trial_err = problem.func.eval_all_dyn(
+            x_trial, state.error_bound, penalty)
+        trial_it = Iterate(
+            x=x_trial, obj_val=t_obj, obj_grad=t_grad, cons_val=t_cons, cons_jac=t_jac,
+            cons_dual=torch.zeros((m,), dtype=dtype, device=dev),
+            vars_dual=torch.zeros((n,), dtype=dtype, device=dev),
+            var_states=torch.zeros((n,), dtype=torch.int8, device=dev),
+            cons_states=torch.zeros((m,), dtype=torch.int8, device=dev))
+    else:
+        trial_it = create_iterate(problem, x_trial)
+        trial_err = torch.zeros((), dtype=dtype, device=dev)
     exact_trial = merit_func(data, trial_it, penalty)
     accepted, ratio, sr_accept, sr_reject = apply_step_rule(
         settings.step_rule, state.step_rule, merit_val, exact_trial, model_trial,
@@ -477,12 +482,25 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
     accepted = accepted & trial_valid
     ratio = torch.where(trial_valid, ratio, -1.0)
 
+    # ---- dynamic accuracy gate (trial_point.c:797-905) ----------------
+    # an insufficiently accurate evaluation cannot be trusted by the step
+    # rule: reject and tighten the bound; the next iteration re-evaluates
+    error_bound_next = state.error_bound
+    skip_soc = false
+    if is_dynamic:
+        required = required_error_bound(settings.accepted_reduction,
+                                        torch.clamp(merit_val - model_trial, min=0.0))
+        skip_soc = torch.maximum(iterate_err, trial_err) > required
+        accepted = accepted & ~skip_soc
+        error_bound_next = torch.where(skip_soc, torch.minimum(state.error_bound, required),
+                                       state.error_bound)
+
     chosen_it = trial_it
     soc_accepted = false
     sr_soc = sr_reject
 
     # ---- second-order correction (iteration.c:484-560) ----------------
-    if m > 0 and settings.perform_soc and not bool(accepted):
+    if m > 0 and settings.perform_soc and not bool(accepted | skip_soc):
         # bound residuals of the working set at the trial point
         trial_like = dataclasses.replace(it, x=trial_it.x, cons_val=trial_it.cons_val)
         soc_dir = solve_min_norm(aug_jac, _working_set_rhs(data, trial_like))
@@ -513,6 +531,10 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
     new_lp_trust_radius = _update_lp_trust_radius(lp_tr_current, final_accept,
                                                   trial_step_infnorm, cauchy_step_infnorm,
                                                   full_cauchy)
+    # accuracy-driven rejections refine the evaluation, not the step: the
+    # radii stay
+    new_trust_radius = torch.where(skip_soc, state.trust_radius, new_trust_radius)
+    new_lp_trust_radius = torch.where(skip_soc, lp_tr_current, new_lp_trust_radius)
     boundary_step = trial_step_norm >= state.trust_radius * (1.0 - settings.eps)
 
     step_type = torch.where(
@@ -553,9 +575,9 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
                         pending=final_accept)
                  if use_qn else state.qn_prev),
         step_rule=sr_next,
-        error_bound=state.error_bound,
-        error_est=torch.where(final_accept, trial_err, state.error_est),
-        refresh_eval=false,
+        error_bound=error_bound_next,
+        error_est=torch.where(final_accept, trial_err, iterate_err),
+        refresh_eval=skip_soc,
         last_model_reduction=merit_val - model_trial,
         last_exact_reduction=merit_val - exact_trial,
         last_reduction_ratio=ratio,

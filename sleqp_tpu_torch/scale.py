@@ -21,8 +21,9 @@ Derivative transforms:
     Hessian product: H' d = 2^{beta - lam} . H(2^{beta} . d), the
     constraint multipliers unscaled first.
 
-The ``DynFunc`` branch of the reference (dynamic functions stay dynamic
-under scaling) is not ported yet (ROADMAP.md queue A item 8e) and raises.
+A dynamic function (``dyn.py``) stays dynamic under scaling
+(problem_scaling.c:276-345): its values are scaled on the way out and the
+solver's error weights on the way in, by the same exact powers of two.
 """
 
 from __future__ import annotations
@@ -34,14 +35,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .dyn import DynFunc
 from .problem import Func, Problem
 
 Tensor = torch.Tensor
-
-DYN_SCALING_NOT_PORTED = (
-    "scaling a dynamic (inexact) function (dyn.py) is not ported yet "
-    "(ROADMAP.md queue A item 8e)")
-
 
 def _frexp_weight(value: float) -> int:
     """Exponent e with value = m 2^e, 0.5 <= |m| < 1 (scale.c:165)."""
@@ -130,8 +127,6 @@ class ScaledProblem(Problem):
         if (scaling.num_variables != problem.num_variables
                 or scaling.num_cons != problem.num_cons):
             raise ValueError("scaling dimensions do not match problem")
-        if hasattr(problem.func, "eval_all_dyn"):
-            raise NotImplementedError(DYN_SCALING_NOT_PORTED)
         self.original = problem
         self.scaling = scaling
         dev = problem.device
@@ -171,9 +166,26 @@ class ScaledProblem(Problem):
             hd = problem.func.hess_prod(_ldexp(xs, up_x), _ldexp(d, up_x), _ldexp(mu_scaled, mu_f))
             return _ldexp(hd, grad_f)
 
-        func = Func(obj, num_variables=problem.num_variables, cons=cons if mg else None,
-                    num_cons=mg, obj_grad=obj_grad, cons_jac=cons_jac if mg else None,
-                    hess_prod=hess_prod, psd_hessian=problem.func.psd_hessian)
+        if isinstance(problem.func, DynFunc):
+            # the solver's error weights are scaled on the way in
+            # (scaled_dyn_func_set_obj_weight / _set_cons_weights:
+            # ldexp(w, -exponent)), so that the weighted-error contract
+            # refers to the scaled merit the solver measures
+            inner = problem.func
+
+            def dyn_eval(xs, error_bound, obj_weight, cons_weights):
+                obj_v, cons_v, err = inner.eval_fn(
+                    _ldexp(xs, up_x), error_bound, obj_weight * down_obj,
+                    _ldexp(cons_weights, down_c))
+                return obj_v * down_obj, _ldexp(cons_v, down_c), err
+
+            func = DynFunc(dyn_eval, num_variables=problem.num_variables, num_cons=mg,
+                           psd_hessian=problem.func.psd_hessian)
+            func.initial_error_bound = inner.initial_error_bound
+        else:
+            func = Func(obj, num_variables=problem.num_variables, cons=cons if mg else None,
+                        num_cons=mg, obj_grad=obj_grad, cons_jac=cons_jac if mg else None,
+                        hess_prod=hess_prod, psd_hessian=problem.func.psd_hessian)
 
         d = problem.data
         ml = problem.num_linear

@@ -123,12 +123,3 @@ def test_criticality_bound_and_backend_resolution_match_jax():
         for kw in ({}, {"pdlp_threshold": 50}, {"lp_solver": LPSolver.SIMPLEX}):
             assert int(tc.resolved_lp_solver(Settings(**kw), n, m)) == int(
                 jc.resolved_lp_solver(JaxSettings(**kw), n, m))
-
-
-def test_pdlp_backend_not_ported():
-    jp, tp, x0 = hs71()
-    it = port_iterate(create_iterate(jp, jnp.asarray(x0)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
-        tc.solve_cauchy_lp(tp.data, it, torch.tensor(0.5, dtype=torch.float64),
-                           torch.tensor(10.0, dtype=torch.float64),
-                           tc.empty_basis(4, 2), lp_solver=LPSolver.PDLP)

@@ -64,8 +64,9 @@ def test_port_and_chip_smoke_import_no_jax():
     # gltr, lsqr), the dense solve (problem, iterate, merit, cauchy, newton,
     # linesearch, penalty, step_rule, measure, quasi_newton, parametric,
     # gauss_newton, problem_solver), the entry point (solver, restoration,
-    # polish, scale, preprocessor), and chip_smoke
-    assert int(proc.stdout.split()[-1]) >= 38, proc.stdout
+    # polish, scale, preprocessor), dyn, ops.pdlp, the harness (+ hs,
+    # medium, driver), and chip_smoke
+    assert int(proc.stdout.split()[-1]) >= 44, proc.stdout
 
 
 def test_chip_smoke_without_card_prints_no_result():
@@ -120,6 +121,23 @@ def test_entry_points_default_to_cuda(monkeypatch):
                        device="cpu")
     assert solver.solve() == tx.Status.OPTIMAL
     assert solver.iterate.x.device.type == "cpu" and solver.solution.shape == (2,)
+
+    # the PDLP backend, dynamic functions and the suite driver
+    from sleqp_tpu_torch.dyn import DynFunc
+    from sleqp_tpu_torch.harness import run_problem, run_suite
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tx.Solver(dense, np.ones(2), Settings(lp_solver=tx.LPSolver.PDLP))
+    dyn = DynFunc(lambda x, bound, w_f, w_c: ((x * x).sum(), x.new_zeros(0), bound * 0.0), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tx.Problem(dyn)
+    out = tx.solve(tx.Problem(dyn, device="cpu"), Settings(), np.ones(2), device="cpu")
+    assert int(out.status) == tx.Status.OPTIMAL
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_problem("hs35")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_suite(["hs35"])
+    assert run_problem("hs35", device="cpu")[1]
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

@@ -14,9 +14,10 @@ round a tie differently (ROADMAP.md queue C): on chainineq the port takes
 of the reference's own arithmetic that the order of a sum decides; there
 the counts are at most 3 apart, as on the mixed route.
 
-Also here: the branches that are not ported (PDLP, dynamic functions)
-raise NotImplementedError naming their ROADMAP.md item, the iteration limit, the settings reader,
-and the round trip of a JAX solver state through the port."""
+Also here: the iteration limit, the settings reader, and the round trip of
+a JAX solver state through the port.  (The PDLP backend and dynamic
+functions, which raised here once, are held in tests/test_torch_pdlp.py and
+tests/test_torch_dyn.py.)"""
 
 import jax
 import jax.numpy as jnp
@@ -27,10 +28,10 @@ import torch
 import sleqp_tpu.problem_solver as jps
 import sleqp_tpu.settings as jst
 from sleqp_tpu import Settings as JaxSettings
-from sleqp_tpu_torch import Settings, SolverState, Status, initial_state, perform_iteration, solve
+from sleqp_tpu_torch import Settings, SolverState, Status, solve
 from sleqp_tpu_torch.convert import tree_from_numpy, tree_to_numpy
 from sleqp_tpu_torch.settings import read_settings_file, read_settings_string
-from sleqp_tpu_torch.types import LPSolver, StepRule, TRSolver
+from sleqp_tpu_torch.types import StepRule, TRSolver
 from torch_dense import boxqp, chainineq, chainqp, flat_jax, hs71, jax_to_numpy, mismatches
 from torch_parity import no_jax_cache_writes  # noqa: F401
 
@@ -71,35 +72,6 @@ def test_iteration_limit_gives_abort_iter():
     assert int(out.status) == int(ref.status) == Status.ABORT_ITER
     assert int(out.iteration) == int(ref.iteration) == 2
     np.testing.assert_allclose(out.it.x.numpy(), np.asarray(ref.it.x), atol=1e-9)
-
-
-NOT_PORTED = {
-    "pdlp": (dict(lp_solver=LPSolver.PDLP), "item 6"),
-    "pdlp_by_auto": (dict(pdlp_threshold=10), "item 6"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_branches_not_ported_raise(case):
-    kw, item = NOT_PORTED[case]
-    _, tp, x0 = hs71()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
-        solve(tp, Settings(**kw), x0, device="cpu")
-    state = initial_state(tp, Settings(), x0, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
-        perform_iteration(tp, Settings(**kw), state)
-
-
-def test_dynamic_function_not_ported():
-    _, tp, x0 = hs71()
-
-    class Dynamic(type(tp.func)):
-        def eval_all_dyn(self, x, error_bound, penalty):
-            raise AssertionError("not reached")
-
-    tp.func.__class__ = Dynamic
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 8e"):
-        solve(tp, Settings(), x0, device="cpu")
 
 
 def test_enums_and_constants_match_jax():

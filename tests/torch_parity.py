@@ -37,6 +37,17 @@ def no_jax_cache_writes():
     jax.clear_caches()
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One CPU thread of torch for the module: its solves run small
+    products, where torch's thread pool costs more than it gains, and the
+    other test workers keep their cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _load_emulation_tool():
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
                         "emulate_thomas.py")
