@@ -1,6 +1,6 @@
 """sleqp_tpu_torch: the PyTorch/CUDA port of sleqp_tpu.
 
-It holds two solves.  The general dense SLP-EQP solve runs the
+It holds four solves.  The general dense SLP-EQP solve runs the
 reference's iteration (``problem_solver.py``): a Cauchy LP by vertex
 enumeration or the revised simplex (or the parametric sweep of its
 radius), a GLTR, projected-CG or Gauss-Newton/LSQR Newton step on exact or
@@ -12,11 +12,17 @@ scaling, presolve, restoration, polishing and callbacks.  The structured
 (``kernels/csrc/bgj.cu``), and the mixed-precision block-tridiagonal solve
 layer (``ops/``) runs the streaming block Thomas
 (``kernels/csrc/thomas.cu``) and the Cholesky block Thomas
-(``kernels/csrc/chol_thomas.cu``).  The package imports ``torch`` and
+(``kernels/csrc/chol_thomas.cu``).  The large-n paths solve banded NLPs
+(``banded.py``: a block-tridiagonal condensed KKT solve per iteration,
+float64 block Thomas or the float32 scan with refinement) and general
+sparse NLPs matrix-free (``sparse.py``: reverse-mode products and
+conjugate gradients), with the PDLP Cauchy LP on operators that never
+materialize the Jacobian.  The package imports ``torch`` and
 ``numpy`` and nothing of JAX or of ``sleqp_tpu``.  Entry points run on
 CUDA unless given ``device="cpu"``.
 """
 
+from .banded import BandedProblem, banded_solve
 from .ocp import (
     BlockStructuredProblem,
     OCPState,
@@ -30,6 +36,7 @@ from .problem_solver import SolverState, initial_state, perform_iteration, solve
 from .scale import Scaling
 from .settings import Settings, read_settings_file, read_settings_string
 from .solver import Solver, SolverEvent
+from .sparse import SparseProblem, sparse_solve
 from .types import (
     ActiveState,
     AugJacMethod,
@@ -52,6 +59,7 @@ from .types import (
 __all__ = [
     "ActiveState",
     "AugJacMethod",
+    "BandedProblem",
     "BfgsSizing",
     "BlockStructuredProblem",
     "DualEstimationType",
@@ -72,10 +80,12 @@ __all__ = [
     "SolverEvent",
     "SolverPhase",
     "SolverState",
+    "SparseProblem",
     "Status",
     "StepRule",
     "StepType",
     "TRSolver",
+    "banded_solve",
     "create_iterate",
     "initial_state",
     "ocp_initial_state",
@@ -85,4 +95,5 @@ __all__ = [
     "read_settings_file",
     "read_settings_string",
     "solve",
+    "sparse_solve",
 ]

@@ -5,8 +5,9 @@ arrays and hand them to both the JAX package and this one; these helpers
 are the port's side of that exchange: for the structured (OCP) solve its
 problem arrays and ``OCPState``, for the dense SLP-EQP solve its
 ``ProblemData``, ``Iterate`` and ``SolverState`` (with the quasi-Newton
-ring buffers, one per Hessian block where there are blocks), and the
-``Scaling`` weights of ``Solver``.
+ring buffers, one per Hessian block where there are blocks), the
+``Scaling`` weights of ``Solver``, and the states of the large-n paths,
+``BandedState`` and ``SparseState``.
 """
 
 from __future__ import annotations
@@ -99,7 +100,8 @@ def _from_tree(cls, src: Any, dev: torch.device):
 
 def tree_from_numpy(cls, src: Any, device: Any = None):
     """One of the port's ``ProblemData``, ``Iterate``, ``SolverState``,
-    ``QNState`` or ``QNPrev`` (``cls``) from numpy arrays: ``src`` is the
+    ``QNState``, ``QNPrev``, ``BandedState`` or ``SparseState`` (``cls``)
+    from numpy arrays: ``src`` is the
     JAX package's object of the same name with its leaves turned into
     numpy (``jax.tree_util.tree_map(np.asarray, state)``), or a nested
     mapping keyed by field name as ``tree_to_numpy`` gives; a tuple of them

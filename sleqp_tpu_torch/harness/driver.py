@@ -8,41 +8,37 @@ sleqp_cutest_driver.c:104-121): one CSV line per problem,
 
 plus solved-% accounting at the reference default tolerances.  Every
 problem is built on the driver's device (``None`` means CUDA) and solved
-there by ``Solver``.  The three large banded entries of the reference
-(``BANDED_PROBLEMS``) need the banded structured solve, which is not
-ported yet (ROADMAP.md queue A item 9): ``get_problem`` raises for them,
-and ``ALL_PROBLEMS`` lists the others.
+there: the HS and medium entries by ``Solver``, the large banded entries
+(``harness/large.py``) by the banded structured solve (``banded.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Iterable, Optional
 
+import torch
+
 from ..device import resolve_device
 from ..settings import Settings
+from ..iterate import max0
 from ..solver import Solver
 from ..types import LPSolver, Status
+from ..banded import BandedProblem, banded_solve
 from .hs import HS_PROBLEMS
 from .hs import get_problem as _get_hs
+from .large import LARGE_PROBLEMS
+from .large import get_problem as _get_large
 from .medium import MEDIUM_PROBLEMS
 from .medium import get_problem as _get_medium
 
-# the reference's large banded entries (harness/large.py)
-BANDED_PROBLEMS = ("bandnl16k", "bandqp10k", "bandrosen10k")
-
-BANDED_NOT_PORTED = (
-    "the banded suite entries need the banded structured solve (banded.py), "
-    "which is not ported yet (ROADMAP.md queue A item 9)")
-
 
 def get_problem(name: str, device: Any = None):
-    """Look up a suite problem across the HS and medium registries, on
-    ``device`` (None means CUDA)."""
-    if name in BANDED_PROBLEMS:
-        raise NotImplementedError(f"{name}: {BANDED_NOT_PORTED}")
-    for lookup in (_get_hs, _get_medium):
+    """Look up a suite problem across the HS, medium and large registries,
+    on ``device`` (None means CUDA)."""
+    for lookup in (_get_hs, _get_medium, _get_large):
         try:
             return lookup(name, device)
         except KeyError:
@@ -50,7 +46,7 @@ def get_problem(name: str, device: Any = None):
     raise KeyError(name)
 
 
-ALL_PROBLEMS = list(HS_PROBLEMS) + list(MEDIUM_PROBLEMS)
+ALL_PROBLEMS = list(HS_PROBLEMS) + list(MEDIUM_PROBLEMS) + list(LARGE_PROBLEMS)
 
 CSV_HEADER = (
     "name;nvars;ncons;status;obj;feas_res;slack_res;stat_res;iterations;"
@@ -92,6 +88,81 @@ class SuiteResult:
         return self.solved / max(self.total, 1)
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (nothing on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _banded_slack_res(problem: BandedProblem, st) -> float:
+    """Measured complementarity residual max |slack * lam| at the final
+    state (iterate.c:241 analogue).  The delta-form update can leave nonzero
+    duals on rows that have since left the working set, so the residual is
+    NOT structurally zero and must be measured."""
+    C = problem.cons(st.X)
+    lo_fin = torch.isfinite(problem.cons_lb)
+    up_fin = torch.isfinite(problem.cons_ub)
+    dist_lo = torch.where(lo_fin, (C - problem.cons_lb).abs(), math.inf)
+    dist_up = torch.where(up_fin, (problem.cons_ub - C).abs(), math.inf)
+    slack = torch.minimum(dist_lo, dist_up)
+    # rows with no finite bound must carry zero dual; count |lam| itself
+    slack = torch.where(lo_fin | up_fin, slack, 1.0)
+    return float(max0((slack * st.lam).abs()))
+
+
+def _run_banded_problem(
+    name: str,
+    problem: BandedProblem,
+    x0,
+    f_opt,
+    settings: Optional[Settings],
+    max_iterations: int,
+    time_limit: Optional[float] = None,
+) -> tuple[str, bool, bool]:
+    """Large banded entries (harness/large.py) solve through the structured
+    path (banded.py) but emit the SAME CSV schema; the trust-radius column
+    carries the Levenberg regularization (the structured analogue) and the
+    Rayleigh columns are zero (no Krylov loop on this path)."""
+    if time_limit is not None:
+        raise ValueError(
+            "time_limit is not supported for banded suite entries: the "
+            "structured solve (banded_solve) reads no clock, as the "
+            "reference's; bound work with max_iterations instead"
+        )
+    settings = settings or Settings()
+    dev = problem.device
+    synchronize(dev)
+    start = time.perf_counter()
+    st = banded_solve(problem, settings, X0=x0, max_iterations=max_iterations)
+    synchronize(dev)
+    seconds = time.perf_counter() - start
+    status = Status(int(st.status))
+    obj_val, feas, stat, reg = (float(v) for v in (st.obj_val, st.feas_res, st.stat_res, st.reg))
+    row = ";".join(
+        [
+            name,
+            str(problem.n),
+            str(problem.m),
+            _STATUS_NAMES.get(status, "unknown"),
+            f"{obj_val:.10e}",
+            f"{feas:.6e}",
+            f"{_banded_slack_res(problem, st):.6e}",
+            f"{stat:.6e}",
+            str(int(st.iteration)),
+            f"{seconds:.3f}",
+            "false",
+            f"{reg:.6e}",
+            f"{0.0:.6e}",
+            f"{0.0:.6e}",
+        ]
+    )
+    solved = status == Status.OPTIMAL
+    obj_ok = True
+    if solved and f_opt is not None:
+        obj_ok = abs(obj_val - f_opt) <= 1e-4 * (1.0 + abs(f_opt))
+    return row, solved, obj_ok
+
+
 def run_problem(
     name: str,
     settings: Optional[Settings] = None,
@@ -102,6 +173,9 @@ def run_problem(
     """Solve one problem on ``device`` (None means CUDA); returns
     (csv_row, solved, objective_matches)."""
     problem, x0, f_opt = get_problem(name, resolve_device(device))
+    if isinstance(problem, BandedProblem):
+        return _run_banded_problem(name, problem, x0, f_opt, settings, max_iterations,
+                                   time_limit=time_limit)
     opts = dict(_PROBLEM_OPTIONS.get(name, {}))
     scaling = opts.pop("scaling", None)
     if "lp_solver" in opts:

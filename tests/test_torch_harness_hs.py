@@ -4,8 +4,8 @@ and harness/driver.py against sleqp_tpu/harness.
 * one case per HS problem: names, x0, bounds, f_opt equal to JAX's; f,
   grad f, c and J at x0 and at a seeded perturbation to 1e-12, NaN
   pattern included (JAX's derivatives taken eagerly);
-* the driver's schema, names, options and status names, and the banded
-  rows raising with ROADMAP.md queue A item 9;
+* the driver's schema, names (the 101 rows of the r5 sweep), options and
+  status names;
 * tests/test_harness.py::test_suite_subset_all_solved through the port's
   driver, each row held to its r5 CSV row.
 """
@@ -16,7 +16,7 @@ import torch
 import sleqp_tpu.harness.driver as jdriver
 from sleqp_tpu.harness import hs as jhs
 from sleqp_tpu.harness.large import LARGE_PROBLEMS
-from sleqp_tpu_torch.harness import ALL_PROBLEMS, BANDED_PROBLEMS, CSV_HEADER, run_suite
+from sleqp_tpu_torch.harness import ALL_PROBLEMS, CSV_HEADER, run_suite
 from sleqp_tpu_torch.harness import driver as tdriver
 from sleqp_tpu_torch.harness import hs as ths
 from torch_harness import check_problem, check_row
@@ -42,17 +42,9 @@ def test_driver_schema_and_options_match_jax():
     assert tdriver._PROBLEM_OPTIONS == jdriver._PROBLEM_OPTIONS
     assert {int(k): v for k, v in tdriver._STATUS_NAMES.items()} == {
         int(k): v for k, v in jdriver._STATUS_NAMES.items()}
-    assert tuple(sorted(LARGE_PROBLEMS)) == BANDED_PROBLEMS
-    assert ALL_PROBLEMS == [n for n in jdriver.ALL_PROBLEMS if n not in LARGE_PROBLEMS]
-    assert len(ALL_PROBLEMS) == 98
-
-
-@pytest.mark.parametrize("name", BANDED_PROBLEMS)
-def test_banded_rows_wait_for_item_9(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 9"):
-        tdriver.get_problem(name, "cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tdriver.run_problem(name, device="cpu")
+    assert set(LARGE_PROBLEMS) <= set(ALL_PROBLEMS)
+    assert ALL_PROBLEMS == jdriver.ALL_PROBLEMS
+    assert len(ALL_PROBLEMS) == 101
 
 
 def test_driver_defaults_to_cuda(monkeypatch):

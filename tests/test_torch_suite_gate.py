@@ -1,5 +1,5 @@
 """The end gate of the port's suite sweep (tools/torch_suite.py) on the
-CPU: the 98 non-banded rows of the r5 sweep on the float64 and the mixed
+CPU: the 101 rows of the r5 sweep on the float64 and the mixed
 route, each row's status and objective held to the r5 CSV, the solved
 counts no lower, the named ties of ``TIES`` excepted.  It takes ~5-25
 minutes a route on one CPU thread, so tier-1 leaves it out (``slow``)."""
@@ -28,7 +28,7 @@ def _tool():
 def test_suite_end_gate(route, tmp_path):
     tool = _tool()
     rows, result, _ = tool.run(route, "cpu", out=str(tmp_path / "suite.csv"), verbose=False)
-    assert len(rows) == 98
+    assert len(rows) == 101
     assert result["ok"], result
     # the named ties are the only rows whose status may differ
     assert all((route, r.split(":")[0]) in tool.TIES for r in result["ties"])

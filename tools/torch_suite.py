@@ -1,8 +1,8 @@
 """The suite sweep of the port, held to the reference's r5 sweep.
 
-Runs ``sleqp_tpu_torch.harness.run_problem`` over the 98 non-banded rows of
+Runs ``sleqp_tpu_torch.harness.run_problem`` over the 101 rows of
 ``artifacts/suite_all_{f64,mixed}_r5.csv`` (or the rows given by
-``--names``) on one route and one device, writes the CSV in the
+``--names``; the three large banded rows go through ``banded_solve``) on one route and one device, writes the CSV in the
 reference's schema, and applies the end gate against the r5 CSV of the
 same route:
 
@@ -122,7 +122,7 @@ def gate(rows: dict, oracle: dict, f_opts: dict, route: str) -> dict:
 
 
 def run(route: str, device: str, names=None, out=None, verbose=True):
-    """Sweep ``names`` (default: every non-banded r5 row) on ``route`` and
+    """Sweep ``names`` (default: every r5 row) on ``route`` and
     ``device``; returns (rows, gate result, seconds)."""
     import torch
 
@@ -159,7 +159,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--route", choices=sorted(ORACLES), default="float64")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--names", nargs="*", help="rows to run (default: the 98 non-banded rows)")
+    ap.add_argument("--names", nargs="*", help="rows to run (default: the 101 rows)")
     ap.add_argument("--out", help="CSV to write")
     ap.add_argument("--threads", type=int, default=1,
                     help="CPU threads of torch (default 1: the problems are small)")
