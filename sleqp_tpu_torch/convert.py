@@ -6,8 +6,9 @@ are the port's side of that exchange: for the structured (OCP) solve its
 problem arrays and ``OCPState``, for the dense SLP-EQP solve its
 ``ProblemData``, ``Iterate`` and ``SolverState`` (with the quasi-Newton
 ring buffers, one per Hessian block where there are blocks), the
-``Scaling`` weights of ``Solver``, and the states of the large-n paths,
-``BandedState`` and ``SparseState``.
+``Scaling`` weights of ``Solver``, the states of the large-n paths,
+``BandedState`` and ``SparseState``, and batched ``SolverState``s with
+their lane dimension first.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from .cauchy import CauchyBasis
 from .device import resolve_device
 from .iterate import Iterate
+from .lanes import tree_leaves
 from .measure import Measure
 from .ocp import OCPState
 from .problem_solver import SolverState
@@ -98,7 +100,7 @@ def _from_tree(cls, src: Any, dev: torch.device):
     return cls(**out)
 
 
-def tree_from_numpy(cls, src: Any, device: Any = None):
+def tree_from_numpy(cls, src: Any, device: Any = None, lanes: int | None = None):
     """One of the port's ``ProblemData``, ``Iterate``, ``SolverState``,
     ``QNState``, ``QNPrev``, ``BandedState`` or ``SparseState`` (``cls``)
     from numpy arrays: ``src`` is the
@@ -106,11 +108,20 @@ def tree_from_numpy(cls, src: Any, device: Any = None):
     numpy (``jax.tree_util.tree_map(np.asarray, state)``), or a nested
     mapping keyed by field name as ``tree_to_numpy`` gives; a tuple of them
     (per-block ring buffers) gives a tuple.  Dtypes and shapes are kept.
-    ``device=None`` means CUDA."""
+    With ``lanes``, ``src`` is a batched state (the JAX package's
+    ``batched_initial_state`` or ``batched_solve``, or the port's
+    ``parallel/batch.py``) and every leaf must have a leading lane
+    dimension of that size.  ``device=None`` means CUDA."""
     dev = resolve_device(device)
     if isinstance(src, (tuple, list)):
-        return tuple(_from_tree(cls, v, dev) for v in src)
-    return _from_tree(cls, src, dev)
+        out = tuple(_from_tree(cls, v, dev) for v in src)
+    else:
+        out = _from_tree(cls, src, dev)
+    if lanes is not None:
+        bad = [tuple(t.shape) for t in tree_leaves(out) if t.ndim == 0 or t.shape[0] != lanes]
+        if bad:
+            raise ValueError(f"not a batched {cls.__name__} of {lanes} lanes: leaf shapes {bad}")
+    return out
 
 
 def scaling_from_reference(src: Any) -> Scaling:

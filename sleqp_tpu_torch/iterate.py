@@ -38,17 +38,6 @@ class Iterate:
     cons_states: Tensor  # (m,) int8 ActiveState
 
 
-def tree_where(pred: Tensor, a, b):
-    """Field-by-field ``torch.where`` over two states of one dataclass
-    type (tuples and nested dataclasses included)."""
-    if isinstance(a, Tensor):
-        return torch.where(pred, a, b)
-    if isinstance(a, tuple):
-        return tuple(tree_where(pred, x, y) for x, y in zip(a, b))
-    return type(a)(**{f.name: tree_where(pred, getattr(a, f.name), getattr(b, f.name))
-                      for f in dataclasses.fields(a)})
-
-
 def max0(t: Tensor) -> Tensor:
     """max(0, max(t)), 0 for an empty t (``jnp.max(t, initial=0.0)``)."""
     if t.numel() == 0:

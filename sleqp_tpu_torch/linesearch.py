@@ -11,8 +11,8 @@ Port of ``sleqp_tpu/linesearch.py`` (reference src/main/linesearch.c):
   merit over a fixed candidate set on the segment.
 
 Model values come from cached direction products; each backtracking
-``lax.while_loop`` of the reference is a Python loop that reads one flag
-per step.
+``lax.while_loop`` of the reference is a ``lanes.lockstep`` loop that
+reads one flag per step for all lanes.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .iterate import Iterate, total_violation, violated_cons_multipliers
+from .lanes import lockstep
 from .merit import Direction, blend
 from .problem import ProblemData
 from .types import INF_THRESHOLD
@@ -38,18 +39,18 @@ def cauchy_linesearch(data: ProblemData, it: Iterate, direction: Direction, pena
     norm = torch.linalg.norm(direction.primal)
     delta0 = torch.clamp(trust_radius / torch.where(norm > 0.0, norm, 1.0), max=1.0)
 
-    delta = delta0
-    count = 0
-    while True:
+    def body(s, trip):
+        delta = s[0]
         lin_viol = total_violation(data, it.cons_val + delta * direction.cons_jac_dot)
         lhs = (penalty * (exact_violation - lin_viol) - delta * direction.obj_dot) * (1.0 - eta)
         ok = lhs >= 0.5 * delta * delta * hess_bilinear
         delta_next = torch.where(ok, delta, delta * tau)
         vanished = delta_next <= eps
-        delta = torch.where(vanished, 0.0, delta_next)
-        if bool(ok | vanished) or count >= _MAX_IT:
-            break
-        count += 1
+        return torch.where(vanished, 0.0, delta_next), ok | vanished
+
+    not_done = torch.zeros_like(delta0, dtype=torch.bool)
+    delta, _ = lockstep(lambda s: ~s[1], body, (delta0, not_done), max_trips=_MAX_IT + 1,
+                        first=True)
 
     scaled = direction.scale(delta)
     lin_viol = total_violation(data, it.cons_val + scaled.cons_jac_dot)
@@ -104,17 +105,17 @@ def trial_linesearch(data: ProblemData, it: Iterate, cauchy_dir: Direction,
         quad_term = 0.5 * (1.0 - alpha) ** 2 * cc + alpha * ((1.0 - alpha) * cn + 0.5 * alpha * nn)
         return lin + quad_term
 
-    start_vanished = alpha0 <= cutoff
-    alpha = torch.where(start_vanished, 0.0, alpha0)
-    done = bool(start_vanished)
-    count = 0
-    while not done:
+    def body(s, trip):
+        alpha = s[0]
         ok = quad_merit(alpha) <= cauchy_quad_merit + eta * alpha * merit_grad_product
         alpha_next = torch.where(ok, alpha, alpha * tau)
         vanished = alpha_next <= cutoff
-        alpha = torch.where(vanished, 0.0, alpha_next)
-        done = bool(ok | vanished) or count >= _MAX_IT
-        count += 1
+        return torch.where(vanished, 0.0, alpha_next), ok | vanished
+
+    start_vanished = alpha0 <= cutoff
+    alpha, _ = lockstep(lambda s: ~s[1], body,
+                        (torch.where(start_vanished, 0.0, alpha0), start_vanished),
+                        max_trips=_MAX_IT + 1)
 
     trial = blend(cauchy_dir, newton_dir, alpha)
     trial_merit = torch.where(alpha > 0.0, quad_merit(alpha), cauchy_quad_merit)

@@ -371,7 +371,7 @@ def _structured_kkt_step(problem, c, g, G, H, frozen, reg, mesh=None, tridiag_ba
     if mesh is not None:
         raise NotImplementedError(
             "the sharded Schur solve (mesh=..., parallel/schur.py) is not "
-            "ported yet (ROADMAP.md queue A item 11)"
+            "ported yet (ROADMAP.md queue A item 11b)"
         )
     dtype = H.dtype
     free = (~frozen).to(dtype)  # (T+1, nz)

@@ -19,10 +19,18 @@ The Lanczos basis is a (K, n) buffer as in the reference.  The reference
 factors the padded K x K tridiagonal by LDL^T scans (``lax.scan``); its
 padding rows decouple exactly (unit diagonal, zero coupling and right-hand
 side), so the port factors the leading k x k block of the current Lanczos
-step, whose size the host knows, with one ``torch.linalg.cholesky_ex``:
-the same factorization (C = L D^1/2), a few launches instead of O(k)
-sequential steps per Newton iteration.  Positive definiteness is the
-factorization's success, as ``all(d > 0)`` is in the reference.
+step with one ``torch.linalg.cholesky_ex``: the same factorization
+(C = L D^1/2), a few launches instead of O(k) sequential steps per Newton
+iteration.  Positive definiteness is the factorization's success, as
+``all(d > 0)`` is in the reference.
+
+The Lanczos loop is a ``lanes.lockstep`` body: a lane that is still
+iterating at trip t is at Lanczos step k = t + 1 whatever its batch (every
+lane starts at k = 1 and steps once a trip), so k is the trip count on the
+host and the active block has the same size on every active lane; frozen
+lanes compute on their stale state and are dropped by the select.  The
+buffers are updated by selects, not by index writes, so that one body runs
+on one lane and under ``vmap``.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Callable
 
 import torch
 
+from ..lanes import lockstep
 from .kkt import AugJac, project_nullspace
 from .tr_cg import TRResult
 
@@ -68,8 +77,7 @@ def _tridiag_tr_solve(
     a = alphas[:k]
     b = betas[1:k]
     T = torch.diag(a) + torch.diag(b, 1) + torch.diag(b, -1)
-    rhs = torch.zeros((k,), dtype=dtype, device=dev)
-    rhs[0] = -gamma0
+    rhs = torch.cat([-gamma0.reshape(1), torch.zeros((k - 1,), dtype=dtype, device=dev)])
 
     # Gershgorin lower bound on the eigenvalues of the active block
     zero = torch.zeros((1,), dtype=dtype, device=dev)
@@ -99,8 +107,7 @@ def _tridiag_tr_solve(
     norm_b = torch.linalg.norm(h_b)
     h_b = h_b * torch.where(norm_b > radius, radius / torch.clamp(norm_b, min=tiny), 1.0)
 
-    h = torch.zeros((K,), dtype=dtype, device=dev)
-    h[:k] = torch.where(interior, h0, h_b)
+    h = torch.cat([torch.where(interior, h0, h_b), torch.zeros((K - k,), dtype=dtype, device=dev)])
     return h, torch.where(interior, 0.0, lam), interior
 
 
@@ -130,58 +137,66 @@ def gltr(
     tol = torch.clamp(max(rel_tol, 10.0 * eps) * gamma0, min=100.0 * finfo.tiny)
     trivial = gamma0 <= finfo.tiny
 
-    V = torch.zeros((K, n), dtype=dtype, device=dev)
-    V[0] = p0 / torch.where(trivial, 1.0, gamma0)
-    alphas = torch.ones((K,), dtype=dtype, device=dev)
-    betas = torch.zeros((K,), dtype=dtype, device=dev)
-    h = torch.zeros((K,), dtype=dtype, device=dev)
-    lam = torch.zeros((), dtype=dtype, device=dev)
-    interior = torch.ones((), dtype=torch.bool, device=dev)
-    min_ray = torch.full((), torch.inf, dtype=dtype, device=dev)
-    max_ray = torch.full((), -torch.inf, dtype=dtype, device=dev)
-    k = 1
-    done = bool(trivial)
+    rows = torch.arange(K, device=dev)
+    v1 = p0 / torch.where(trivial, 1.0, gamma0)
+    init = dict(
+        V=torch.where(rows[:, None] == 0, v1[None, :],
+                      torch.zeros((K, n), dtype=dtype, device=dev)),
+        alphas=torch.ones((K,), dtype=dtype, device=dev),
+        betas=torch.zeros((K,), dtype=dtype, device=dev),
+        h=torch.zeros((K,), dtype=dtype, device=dev),
+        lam=torch.zeros((), dtype=dtype, device=dev),
+        interior=torch.ones((), dtype=torch.bool, device=dev),
+        min_ray=torch.full((), torch.inf, dtype=dtype, device=dev),
+        max_ray=torch.full((), -torch.inf, dtype=dtype, device=dev),
+        iters=torch.zeros((), dtype=torch.int32, device=dev),
+        done=trivial,
+    )
 
-    while not done and k <= K:
-        j = k - 1  # current Lanczos index
+    def body(s, trip):
+        k = trip + 1  # the active dimension on every lane still iterating
+        j = trip  # current Lanczos index
+        V = s["V"]
         v_j = V[j]
         w = project_nullspace(aug_jac, hess_prod(v_j))
         alpha_j = torch.dot(v_j, w)
-        alphas[j] = alpha_j
-        min_ray = torch.minimum(min_ray, alpha_j)
-        max_ray = torch.maximum(max_ray, alpha_j)
+        alphas = torch.where(rows == j, alpha_j, s["alphas"])
 
         # full reorthogonalization against the stored basis
         w = w - V.T @ (V @ w)
         beta_next = torch.linalg.norm(w)
 
         # reduced TR solve with the updated tridiagonal (warm-started)
-        h, lam, interior = _tridiag_tr_solve(alphas, betas, gamma0, radius, k, lam_warm=lam,
-                                             newton_iters=_MS_WARM_ITERS)
+        h, lam, interior = _tridiag_tr_solve(alphas, s["betas"], gamma0, radius, k,
+                                             lam_warm=s["lam"], newton_iters=_MS_WARM_ITERS)
 
         # GLTR convergence: Lanczos residual |beta_k * h_k|
         converged = beta_next * h[j].abs() <= tol
         breakdown = beta_next <= 100.0 * eps * torch.clamp(gamma0, min=1.0)
+        stop = converged | breakdown
 
         can_store = k + 1 <= K
-        betas[min(k, K - 1)] = beta_next if can_store else 0.0
-        k += 1
-        done = bool(converged | breakdown) or k > K
-        if not done:
-            V[k - 1] = w / torch.where(beta_next > 0.0, beta_next, 1.0)
+        betas = torch.where(rows == min(k, K - 1), beta_next if can_store else 0.0, s["betas"])
+        if can_store:
+            V = torch.where((rows[:, None] == k) & ~stop,
+                            (w / torch.where(beta_next > 0.0, beta_next, 1.0))[None, :], V)
+        return dict(V=V, alphas=alphas, betas=betas, h=h, lam=lam, interior=interior,
+                    min_ray=torch.minimum(s["min_ray"], alpha_j),
+                    max_ray=torch.maximum(s["max_ray"], alpha_j),
+                    iters=s["iters"] + 1, done=stop)
 
-    d = V.T @ h
+    final = lockstep(lambda s: ~s["done"], body, init, max_trips=K)
+    d = final["V"].T @ final["h"]
     d = torch.where(trivial, 0.0, d)
     # final safeguard: never exceed the radius
     dn = torch.linalg.norm(d)
     d = d * torch.where(dn > radius, radius / torch.clamp(dn, min=finfo.tiny), 1.0)
 
-    iters = k - 1
-    zero_spectrum = iters == 0
+    zero_spectrum = final["iters"] == 0
     return TRResult(
         step=d,
-        on_boundary=~interior,
-        iterations=torch.full((), iters, dtype=torch.int32, device=dev),
-        min_rayleigh=torch.zeros_like(min_ray) if zero_spectrum else min_ray,
-        max_rayleigh=torch.zeros_like(max_ray) if zero_spectrum else max_ray,
+        on_boundary=~final["interior"],
+        iterations=final["iters"],
+        min_rayleigh=torch.where(zero_spectrum, 0.0, final["min_ray"]),
+        max_rayleigh=torch.where(zero_spectrum, 0.0, final["max_ray"]),
     )

@@ -73,8 +73,9 @@ def _ge_solve(A: Tensor, b: Tensor) -> Tensor:
         factor = M[..., :, i] / piv[..., i : i + 1]
         factor = torch.where(rows > i, factor, 0.0)
         M = M - factor[..., None] * piv[..., None, :]
-    # back substitution (U x = y), unrolled
-    x = torch.zeros_like(b)
+    # back substitution (U x = y), unrolled; the buffer is made from M so
+    # that it carries the lanes of A or b under vmap
+    x = torch.zeros_like(M[..., m])
     for i in reversed(range(m)):
         acc = M[..., i, m] - (M[..., i, :m] * x).sum(dim=-1)
         x = x.clone()

@@ -5,7 +5,8 @@ minimize ``g^T d + 0.5 d^T H d`` subject to ``A_W d = 0`` and
 ``||d|| <= radius``, with H products from a callback and residuals
 projected onto null(A_W) every iteration.  Negative curvature and crossing
 the trust region both end with a step to the boundary.  The reference's
-``lax.while_loop`` is a Python loop that reads one flag per iteration.
+``lax.while_loop`` is a ``lanes.lockstep`` loop that reads one flag per
+iteration for all lanes.
 
 Also records the min/max Rayleigh quotients met (newton.c:318-346).
 """
@@ -17,6 +18,7 @@ from typing import Callable
 
 import torch
 
+from ..lanes import lockstep
 from .kkt import AugJac, project_nullspace
 
 Tensor = torch.Tensor
@@ -64,22 +66,25 @@ def steihaug_cg(
     # tolerance on the projected-gradient norm
     tol_sq = torch.clamp(rel_tol * rel_tol * rz.abs(), min=abs_tol * abs_tol)
 
-    d = torch.zeros((n,), dtype=dtype, device=dev)
-    r = gradient
-    p = -z
-    on_boundary = torch.zeros((), dtype=torch.bool, device=dev)
-    min_ray = torch.full((), torch.inf, dtype=dtype, device=dev)
-    max_ray = torch.full((), -torch.inf, dtype=dtype, device=dev)
-    it = 0
-    done = bool(rz <= tol_sq)
+    init = dict(
+        d=torch.zeros((n,), dtype=dtype, device=dev),
+        r=gradient,
+        z=z,
+        p=-z,
+        rz=rz,
+        on_boundary=torch.zeros((), dtype=torch.bool, device=dev),
+        min_ray=torch.full((), torch.inf, dtype=dtype, device=dev),
+        max_ray=torch.full((), -torch.inf, dtype=dtype, device=dev),
+        iters=torch.zeros((), dtype=torch.int32, device=dev),
+        done=rz <= tol_sq,
+    )
 
-    while not done and it < max_iterations:
+    def body(s, trip):
+        d, r, p, rz = s["d"], s["r"], s["p"], s["rz"]
         Hp = hess_prod(p)
         pp = torch.dot(p, p)
         pHp = torch.dot(p, Hp)
         rayleigh = pHp / torch.where(pp > 0.0, pp, 1.0)
-        min_ray = torch.minimum(min_ray, rayleigh)
-        max_ray = torch.maximum(max_ray, rayleigh)
 
         neg_curv = pHp <= 1e-14 * pp
         alpha = rz / torch.where(neg_curv, 1.0, pHp)
@@ -99,21 +104,25 @@ def steihaug_cg(
 
         beta = rz_next / torch.where(rz != 0.0, rz, 1.0)
         p_next = -z_next + beta * p
+        return dict(
+            d=torch.where(hit_boundary, d_boundary, d_next),
+            r=torch.where(hit_boundary, r, r_next),
+            z=torch.where(hit_boundary, s["z"], z_next),
+            p=torch.where(hit_boundary, p, p_next),
+            rz=torch.where(hit_boundary, rz, rz_next),
+            on_boundary=s["on_boundary"] | hit_boundary,
+            min_ray=torch.minimum(s["min_ray"], rayleigh),
+            max_ray=torch.maximum(s["max_ray"], rayleigh),
+            iters=s["iters"] + 1,
+            done=hit_boundary | converged,
+        )
 
-        d = torch.where(hit_boundary, d_boundary, d_next)
-        r = torch.where(hit_boundary, r, r_next)
-        z = torch.where(hit_boundary, z, z_next)
-        p = torch.where(hit_boundary, p, p_next)
-        rz = torch.where(hit_boundary, rz, rz_next)
-        on_boundary = on_boundary | hit_boundary
-        it += 1
-        done = bool(hit_boundary | converged)
-
-    zero_spectrum = it == 0
+    final = lockstep(lambda s: ~s["done"], body, init, max_trips=max_iterations)
+    zero_spectrum = final["iters"] == 0
     return TRResult(
-        step=d,
-        on_boundary=on_boundary,
-        iterations=torch.full((), it, dtype=torch.int32, device=dev),
-        min_rayleigh=torch.zeros_like(min_ray) if zero_spectrum else min_ray,
-        max_rayleigh=torch.zeros_like(max_ray) if zero_spectrum else max_ray,
+        step=final["d"],
+        on_boundary=final["on_boundary"],
+        iterations=final["iters"],
+        min_rayleigh=torch.where(zero_spectrum, 0.0, final["min_ray"]),
+        max_rayleigh=torch.where(zero_spectrum, 0.0, final["max_ray"]),
     )

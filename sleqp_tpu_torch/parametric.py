@@ -21,7 +21,8 @@ from typing import Callable
 import torch
 
 from .cauchy import CauchyResult, solve_cauchy_lp
-from .iterate import Iterate, total_violation, tree_where
+from .iterate import Iterate, total_violation
+from .lanes import tree_where
 from .merit import Direction, make_direction
 from .problem import ProblemData
 from .types import LPSolver, ParametricCauchy

@@ -4,8 +4,9 @@ Port of ``sleqp_tpu/penalty.py`` (reference src/main/penalty.c): compare
 the current average linearized violation with the best achievable one (a
 FEAS-objective LP re-solve) and raise the penalty x10 (at most 100 times),
 re-solving the LP from the previous basis, until the violation reduction
-is acceptable.  The reference's ``lax.cond``/``lax.while_loop`` are Python
-branches and a loop on scalars read from the device.
+is acceptable.  The reference's ``lax.cond``s are branches on one read
+(``lanes.lanes_any``: taken when any lane needs them, selected per lane)
+and its ``lax.while_loop`` a ``lanes.lockstep`` loop.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from .cauchy import CauchyResult, solve_cauchy_lp
 from .iterate import Iterate, max0
+from .lanes import lanes_any, lanes_where, lockstep
 from .problem import ProblemData
 from .types import LPSolver
 
@@ -52,7 +54,8 @@ def update_penalty(
                                compute_dtype=compute_dtype)
 
     # skip when already (linearly) feasible enough (penalty.c:30-37)
-    if bool(cur_viol <= VIOLATION_TOL):
+    skip = cur_viol <= VIOLATION_TOL
+    if not lanes_any(~skip):
         return penalty, current, unchanged
 
     feas_res = solve_at(penalty, current.basis, True)
@@ -60,21 +63,22 @@ def update_penalty(
     achievable = inf_viol <= VIOLATION_TOL
     # if even the best violation is above tolerance and no progress is
     # possible, keep the penalty (penalty.c:100-110)
-    stuck = (~achievable) & (cur_viol - inf_viol <= VIOLATION_TOL)
-    if bool(stuck):
+    keep = skip | ((~achievable) & (cur_viol - inf_viol <= VIOLATION_TOL))
+    if not lanes_any(~keep):
         return penalty, current, unchanged
 
-    pen, result, count = penalty, current, 0
-    while True:
-        pen = pen * PENALTY_INCREASE
-        result = solve_at(pen, result.basis, False)
+    def body(s, trip):
+        pen = s[0] * PENALTY_INCREASE
+        result = solve_at(pen, s[1].basis, False)
         next_viol = result.violation / m
         ok = torch.where(achievable, next_viol <= VIOLATION_TOL,
                          (cur_viol - next_viol) >= MIN_DECREASE * (cur_viol - inf_viol))
-        count += 1
-        if bool(ok) or count >= MAX_INCREASES:
-            break
-    return pen, result, ~unchanged
+        return pen, result, ok
+
+    pen, result, _ = lockstep(lambda s: ~s[2], body, (penalty, current, keep),
+                              max_trips=MAX_INCREASES, first=~keep)
+    pen, result = lanes_where(~keep, (pen, result), (penalty, current))
+    return pen, result, ~keep
 
 
 # Global penalty reset constants (trial_point/cauchy_step.c:15-17)

@@ -19,6 +19,14 @@ selects with ``where``, the port selects with ``torch.where``, which takes
 nothing (NaN or inf included) from the side it does not select; a stopping
 iteration returns its stopped state without evaluating the trial point.
 
+The loops and the branches of the route ``parallel/batch.py`` batches (the
+Cauchy LP by enumeration or the box step, exact Hessians, GLTR or CG)
+read their flags through ``lanes.py``: under ``torch.func.vmap`` a branch is
+taken when any lane needs it and its result selected per lane, a loop runs
+its lanes in lockstep, and a lane that stops keeps its stopped state while
+the others iterate.  On one instance the same code reads the same flags as
+a plain loop.
+
 Quasi-Newton Hessians (``hess_eval != EXACT``) push their pair on one
 host read of ``qn_prev.pending``; the parametric Cauchy sweep and the
 Gauss-Newton step of an ``LSQFunc`` read one stop flag per LP re-solve or
@@ -51,8 +59,8 @@ from .iterate import (
     kkt_residuals,
     max0,
     max_violation,
-    tree_where,
 )
+from .lanes import is_batched, lanes_any, lanes_where, lockstep, tree_where
 from .linesearch import cauchy_linesearch, trial_linesearch, trial_linesearch_exact
 from .measure import Measure, compute_measure, empty_measure
 from .merit import make_direction, merit_func, merit_linear, merit_quadratic
@@ -274,11 +282,14 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
             dual_warm_start=settings.lp_dual_warm_start, lp_solver=lp_backend,
             pdlp_tol=settings.pdlp_tol, compute_dtype=cdtype)
         # Byrd penalty update when infeasible (cauchy_step.c:80-88)
-        if not bool(is_feasible):
-            penalty, cres, pen_changed = update_penalty(
+        infeasible = ~is_feasible
+        if lanes_any(infeasible):
+            pen_new, cres_new, pen_changed = update_penalty(
                 data, it, state.lp_trust_radius, penalty, cres, lp_solver=lp_backend,
                 pdlp_tol=settings.pdlp_tol, compute_dtype=cdtype)
-            merit_val = torch.where(pen_changed, merit_func(data, it, penalty), merit_val)
+            merit_new = torch.where(pen_changed, merit_func(data, it, pen_new), merit_val)
+            penalty, cres, merit_val = lanes_where(infeasible, (pen_new, cres_new, merit_new),
+                                                   (penalty, cres, merit_val))
     else:
         cres = solve_box_cauchy(data, it, state.lp_trust_radius)
 
@@ -448,7 +459,8 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
 
     # ---- early termination: keep the (duals-updated) iterate ----------
     stop = optimal | unbounded | locally_infeasible | deadpoint
-    if bool(stop):
+
+    def stopped():
         stop_status = torch.where(
             optimal, int(Status.OPTIMAL),
             torch.where(unbounded, int(Status.UNBOUNDED),
@@ -458,6 +470,12 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
             state, it=it, status=stop_status, feas_res=feas_res, slack_res=slack_res,
             stat_res=stat_res, basis=cres.basis,
             num_assert_fail=state.num_assert_fail | num_assert_fail)
+
+    if not lanes_any(~stop):
+        return stopped()
+    # lanes that stop go on through the trial point with the others and
+    # take their stopped state at the end
+    stop_state = stopped() if is_batched(stop) else None
 
     # ---- trial evaluation + step rule ---------------------------------
     x_trial = problem.clip_to_bounds(it.x + trial_dir.primal)
@@ -500,7 +518,8 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
     sr_soc = sr_reject
 
     # ---- second-order correction (iteration.c:484-560) ----------------
-    if m > 0 and settings.perform_soc and not bool(accepted | skip_soc):
+    needs_soc = ~(accepted | skip_soc)
+    if m > 0 and settings.perform_soc and lanes_any(needs_soc):
         # bound residuals of the working set at the trial point
         trial_like = dataclasses.replace(it, x=trial_it.x, cons_val=trial_it.cons_val)
         soc_dir = solve_min_norm(aug_jac, _working_set_rhs(data, trial_like))
@@ -514,7 +533,7 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
             settings.accepted_reduction)
         # the SOC trial point gets its own manual/non-finite rejection
         soc_valid = _trial_ok(problem, x_soc, soc_it)
-        soc_accepted = norm_ok & soc_ok & soc_valid
+        soc_accepted = needs_soc & norm_ok & soc_ok & soc_valid
         soc_ratio = torch.where(soc_valid, soc_ratio, -1.0)
         chosen_it = tree_where(soc_accepted, soc_it, trial_it)
         ratio = torch.where(soc_accepted, soc_ratio, ratio)
@@ -544,7 +563,7 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
                                 int(StepType.ACCEPTED))),
         int(StepType.REJECTED)).to(torch.int32)
 
-    return SolverState(
+    out = SolverState(
         it=tree_where(final_accept, chosen_it, it),
         trust_radius=new_trust_radius,
         lp_trust_radius=new_lp_trust_radius,
@@ -584,22 +603,22 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
         measure=compute_measure(data, it, trial_it, trial_dir, multipliers),
         num_assert_fail=state.num_assert_fail | num_assert_fail,
     )
+    return out if stop_state is None else tree_where(stop, stop_state, out)
 
 
 def solve_from(problem: Problem, settings: Settings, state: SolverState,
                max_iterations: int) -> SolverState:
     """Iterate from ``state`` while the status is RUNNING and the iteration
     count is below ``max_iterations`` (solve.c:95-252; the reference's
-    ``solve_jit``); a solve that reaches the limit ends ABORT_ITER."""
-    while True:
-        status, iteration = torch.stack([state.status, state.iteration]).tolist()
-        if status != Status.RUNNING or iteration >= max_iterations:
-            break
-        state = perform_iteration(problem, settings, state)
-    if status == Status.RUNNING:
-        state = dataclasses.replace(state, status=torch.full_like(state.status,
-                                                                  int(Status.ABORT_ITER)))
-    return state
+    ``solve_jit``); a solve that reaches the limit ends ABORT_ITER.  Under
+    ``vmap`` the lanes iterate in lockstep until every one has stopped."""
+
+    def running(s):
+        return (s.status == int(Status.RUNNING)) & (s.iteration < max_iterations)
+
+    state = lockstep(running, lambda s, trip: perform_iteration(problem, settings, s), state)
+    status = torch.where(state.status == int(Status.RUNNING), int(Status.ABORT_ITER), state.status)
+    return dataclasses.replace(state, status=status.to(torch.int32))
 
 
 def solve(problem: Problem, settings: Settings, x0: Any, max_iterations: int = 1000,

@@ -15,7 +15,10 @@ since |c_i - s_i| bounds the violation when s lies inside the bounds.
 
 ``solve_with_restoration`` is the reference's single-instance form; its
 ``lax.cond`` on the INFEASIBLE status is a branch on one host read.  The
-batched form (``parallel/batch.py``) waits for ROADMAP.md queue A item 11.
+batched solve (``parallel/batch.py``) runs without restoration lanes:
+``batched_solve(restoration=True)`` raises ``NotImplementedError`` until
+ROADMAP.md queue A item 11b; on the CPU its tests are
+``tests/test_torch_batch{,_mp}.py``.
 """
 
 from __future__ import annotations

@@ -37,6 +37,7 @@ sys.meta_path.insert(0, Block())
 before = set(sys.modules)
 import sleqp_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sleqp_tpu_torch.__path__, "sleqp_tpu_torch.")]
+assert {"sleqp_tpu_torch.parallel", "sleqp_tpu_torch.parallel.batch"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -65,8 +66,9 @@ def test_port_and_chip_smoke_import_no_jax():
     # linesearch, penalty, step_rule, measure, quasi_newton, parametric,
     # gauss_newton, problem_solver), the entry point (solver, restoration,
     # polish, scale, preprocessor), dyn, ops.pdlp, the harness (+ hs,
-    # medium, driver), and chip_smoke
-    assert int(proc.stdout.split()[-1]) >= 44, proc.stdout
+    # medium, driver), lanes, the batched solve (parallel, parallel.batch),
+    # and chip_smoke
+    assert int(proc.stdout.split()[-1]) >= 47, proc.stdout
 
 
 def test_chip_smoke_without_card_prints_no_result():
@@ -138,6 +140,23 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         run_suite(["hs35"])
     assert run_problem("hs35", device="cpu")[1]
+
+    # the batched solve (parallel/batch.py)
+    from sleqp_tpu_torch.parallel import (batched_initial_state, batched_solve,
+                                          batched_solve_chunked, batched_solve_mp,
+                                          multistart_solve)
+
+    x0b = np.ones((3, 2))
+    for entry in (batched_solve, batched_solve_mp, batched_solve_chunked):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(dense, Settings(), x0b)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batched_initial_state(dense, Settings(), x0b)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multistart_solve(dense, Settings(), np.ones(2))
+    out = batched_solve(dense, Settings(), x0b, device="cpu")
+    assert out.it.x.shape == (3, 2) and out.it.x.device.type == "cpu"
+    assert bool((out.status == tx.Status.OPTIMAL).all())
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

@@ -3,8 +3,8 @@ the restoration phase (restoration.py) against the JAX package.
 
 * the cases of tests/test_solver_class.py, with the Solver's status,
   solution, iterations and phase toggles held against JAX's Solver;
-* tests/test_solver.py but ``test_multistart_escapes_hs33_basin`` (it
-  needs ``parallel/batch.py``, ROADMAP.md queue A item 11), held against
+* tests/test_solver.py but ``test_multistart_escapes_hs33_basin`` (the
+  batched multistart: tests/test_torch_batch_mp.py), held against
   JAX's whole solve (status, x to 1e-8, iterations);
 * ``test_restoration_batched.py::test_solve_with_restoration_single``;
 * the numerical-assert and float-flag cases of tests/test_num_asserts.py;

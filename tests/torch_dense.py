@@ -8,13 +8,19 @@ tests/fixtures.py; ``chainineq``, ``chainqp`` and ``boxqp`` follow
 sleqp_tpu/harness/medium.py (same seeds) at a size given by the caller.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from chip_smoke import (  # noqa: F401  (the field comparisons, shared with chip_smoke.py)
+    NONLIN,
+    field_mismatches as mismatches,
+    flat_fields,
+    single_lane_states,
+    step_mismatches,
+    tie_mismatches,
+)
 import fixtures
 import sleqp_tpu as jx
 import sleqp_tpu.cauchy as jc
@@ -147,58 +153,14 @@ def port_iterate(jax_it):
     return tree_from_numpy(Iterate, jax_to_numpy(jax_it), device="cpu")
 
 
-def _flat(obj, prefix=""):
-    out = {}
-    if isinstance(obj, dict):
-        for k, v in obj.items():
-            out.update(_flat(v, f"{prefix}{k}."))
-    elif isinstance(obj, tuple):
-        for i, v in enumerate(obj):
-            out.update(_flat(v, f"{prefix}{i}."))
-    elif dataclasses.is_dataclass(obj):
-        for f in dataclasses.fields(obj):
-            out.update(_flat(getattr(obj, f.name), f"{prefix}{f.name}."))
-    else:
-        out[prefix[:-1]] = np.asarray(obj)
-    return out
-
-
 def flat_jax(obj):
     """{dotted field name: numpy array} of a JAX dataclass tree."""
-    return _flat(obj)
+    return flat_fields(obj)
 
 
 def flat_port(obj):
     """{dotted field name: numpy array} of a port dataclass tree."""
-    return _flat(tree_to_numpy(obj))
-
-
-def mismatches(port, ref, tol, skip=()):
-    """Fields of two flattened states that differ: floats by more than
-    ``tol`` (absolute, scaled by max(1, |ref|)), everything else exactly;
-    dtypes and shapes must agree."""
-    assert set(port) >= set(ref), sorted(set(ref) - set(port))
-    bad = {}
-    for key, b in ref.items():
-        if any(key.startswith(s) for s in skip):
-            continue
-        a = port[key]
-        if a.dtype != b.dtype or a.shape != b.shape:
-            bad[key] = f"{a.dtype}{a.shape} vs {b.dtype}{b.shape}"
-        elif a.dtype.kind == "f":
-            if not np.array_equal(np.isnan(a), np.isnan(b)):
-                bad[key] = "NaN pattern"
-                continue
-            fin = ~np.isnan(a)
-            with np.errstate(invalid="ignore"):  # inf - inf where both are inf
-                err = np.abs(a[fin] - b[fin])
-            scale = np.maximum(1.0, np.abs(np.where(np.isinf(b[fin]), 0.0, b[fin])))
-            same_inf = np.isinf(b[fin]) & (a[fin] == b[fin])
-            if np.any((err > tol * scale) & ~same_inf):
-                bad[key] = float(np.max(np.where(same_inf, 0.0, err)))
-        elif not np.array_equal(a, b):
-            bad[key] = (a.tolist() if a.size <= 8 else "differs", b.tolist() if b.size <= 8 else "")
-    return bad
+    return flat_fields(tree_to_numpy(obj))
 
 
 # ---- the problems of tests/fixtures.py and the suite, as port problems ----
@@ -357,8 +319,6 @@ def hs42_linear():
 
 # ---- one port iteration from every JAX iterate ------------------------------
 
-NONLIN = ("measure.obj_nonlin", "measure.cons_nonlin", "measure.lag_nonlin")
-
 
 def jax_states(jp, settings, x0, limit=100):
     """JAX's states from the start to the end of its solve (one jitted
@@ -374,30 +334,13 @@ def jax_states(jp, settings, x0, limit=100):
 
 def iteration_mismatches(tp, settings, states, tol=1e-9):
     """{k: mismatching fields} of one port perform_iteration from each JAX
-    state against JAX's next state: every float to ``tol``, everything else
-    exactly.  Two kinds of field divide a rounding of the merit's terms,
-    ~1e-13 (1 + |f| + |c|_1), by a small quantity, and are held to that
-    bound: the nonlinearity measures (by ||d||^2) and the reduction ratio
-    (by the model reduction)."""
+    state against JAX's next state (``step_mismatches``)."""
     from sleqp_tpu_torch import problem_solver as tps
 
     bad = {}
     for k, (before, ref_after) in enumerate(zip(states[:-1], states[1:])):
         after = tps.perform_iteration(tp, settings, port_state(before))
-        got, ref = flat_port(after), flat_jax(ref_after)
-        ratio = "last_reduction_ratio"
-        diff = mismatches(got, ref, tol, skip=NONLIN + (ratio,))
-        rounding = 1e-13 * (1.0 + abs(float(ref["it.obj_val"])) + np.abs(ref["it.cons_val"]).sum())
-        d2 = float(ref["measure.step_norm"]) ** 2
-        for key in NONLIN:
-            if d2 > 0 and abs(float(got[key]) - float(ref[key])) > rounding / d2 + tol:
-                diff[key] = float(got[key]) - float(ref[key])
-        model = abs(float(ref["last_model_reduction"]))
-        ratio_tol = tol * max(1.0, abs(float(ref[ratio])))
-        if model > 0:
-            ratio_tol += rounding * (1.0 + abs(float(ref[ratio]))) / model
-        if not abs(float(got[ratio]) - float(ref[ratio])) <= ratio_tol:
-            diff[ratio] = float(got[ratio]) - float(ref[ratio])
+        diff = step_mismatches(flat_port(after), flat_jax(ref_after), tol)
         if diff:
             bad[k] = diff
     return bad
