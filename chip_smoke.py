@@ -13,10 +13,13 @@ run from a checkout of the repository, on a machine with a CUDA device and
    and a library call on the same inputs as a yardstick, never called by
    the port (``torch.linalg.inv`` for the batched inverses; for the
    Thomas kernels the dense Cholesky factorization, triangular solve or
-   Cholesky solve of the same system, assembled); then time the batched
-   inverses at every batch the main paths launch them on (one
-   cyclic-reduction factorization at T = 1560 and at N = 160), with the
-   sums per mixed OCP iteration and per ``cr32`` factorization;
+   Cholesky solve of the same system, assembled); then hold against their
+   plain versions and time the batched inverses at every batch the main
+   paths launch them on (one cyclic-reduction factorization at T = 1560,
+   at N = 160 and on a rank's interior in phase 15; the lanes of phase 16
+   folded), with the sums per mixed OCP iteration and per ``cr32``
+   factorization, and under ``torch.func.vmap`` on eight lanes, one
+   launch each, every lane against the plain version;
 3. the mixed-precision OCP solve: ``ocp_solve`` with
    ``Settings(compute_dtype="float32")`` on the multistage problem of
    ``bench.py`` (T = 1560, nx = nu = 32, n = 99 840), with the kernels'
@@ -83,24 +86,41 @@ run from a checkout of the repository, on a machine with a CUDA device and
     ``tools/batch_reference.py``); solves per second, instance-iterations
     per second, ms per lockstep trip by phase, host reads and kernels per
     trip; eight lanes against the port's single-lane ``solve`` on the card;
-15. one JSON line describing each kernel, then the result line.
+15. the sharded paths on four ranks sharing the card (gloo, subprocesses
+    of this script with a file rendezvous and a deadline; correctness, not
+    scaling): ``sharded_schur_solve`` at N = 1559, k = 32 on both interior
+    routes against ``block_tridiag_solve`` (1e-8); ``ocp_solve(mesh=)`` on
+    phase 3's problem on the float64 (``"auto"``), float64 ``"pallas"``
+    and mixed routes against phases 4, 6 and 3; ``sharded_solve`` of
+    phase 14's HS71 starts at B = 1024 through phase 14's gate; every rank
+    ending with the same bits; ms per iteration, s per run, collectives per
+    KKT solve, launches of B1/B2 over the ranks;
+16. ``batched_ocp_solve``: eight scenarios of ``bench.py``'s problem with A
+    scaled to spectral radius 0.95 (x0 = 1 + 0.05 b) on both routes, and
+    with controls bounded to [-0.3, 0.3] on the mixed route (lanes that
+    stop on different trips and backtrack apart), each lane against the
+    port's single-lane solve on the card; host reads, merit evaluations
+    and bgj_blocked64 launches against the single lanes';
+17. one JSON line describing each kernel, then the result line.
 
-Phases 3, 5 and 6 are the main paths of the kernels: the launch counts are
-cleared just before each and read just after, and the kernels line reports
-their sum.  Phases 7 to 14 are read the same way and must launch none of
-them.
+Phases 3, 5, 6, 15 and 16 are the main paths of the kernels: the launch
+counts are cleared just before each and read just after (phase 15: in each
+rank, summed), and the kernels line reports their sum.  Phases 7 to 14 are
+read the same way and must launch none of them.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device it exits with code 2 before any phase; outside
 a checkout of the repository the package import fails.
 """
 
+import collections
 import dataclasses
 import functools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -130,7 +150,12 @@ from sleqp_tpu_torch import (  # noqa: E402
     sparse_solve,
 )
 from sleqp_tpu_torch import banded, cauchy, gauss_newton, problem_solver, sparse  # noqa: E402
+from sleqp_tpu_torch import ocp as ocp_module  # noqa: E402
+from sleqp_tpu_torch.lanes import vmap_lanes  # noqa: E402
+from sleqp_tpu_torch.ocp import batched_ocp_solve, ocp_solve_from  # noqa: E402
 from sleqp_tpu_torch.parallel import batch as pb  # noqa: E402
+from sleqp_tpu_torch.parallel import collectives, ranks  # noqa: E402
+from sleqp_tpu_torch.parallel.schur import sharded_schur_solve  # noqa: E402
 from sleqp_tpu_torch.dyn import DynFunc  # noqa: E402
 from sleqp_tpu_torch.kernels import _build  # noqa: E402
 from sleqp_tpu_torch.ops import cyclic_reduction as cr  # noqa: E402
@@ -396,15 +421,26 @@ def cr_batches(n):
     return batches + [1]
 
 
-def bench_problem():
+def bench_matrices(radius=None):
+    """bench.py's A (spectral radius 1.106) and B, from ``default_rng(0)``;
+    ``radius`` scales A to that spectral radius."""
+    rng = np.random.default_rng(0)
+    A = np.eye(NX) + 0.02 * rng.standard_normal((NX, NX))
+    if radius is not None:
+        A = A * (radius / np.abs(np.linalg.eigvals(A)).max())
+    return A, 0.1 * rng.standard_normal((NX, NU))
+
+
+def bench_problem(radius=None, device="cuda", u_bound=None):
     """bench.py's multistage problem, as torch callables on the card, and
     its multiple-shooting start (x_0 fixed, later states zero).  The
     dynamics are unstable (spectral radius of A 1.106), so the rollout
     start that bench.py times iterations from grows to ~1e67 by t = 1560
-    and no solve converges from it."""
-    rng = np.random.default_rng(0)
-    A = torch.tensor(np.eye(NX) + 0.02 * rng.standard_normal((NX, NX)), device="cuda")
-    B = torch.tensor(0.1 * rng.standard_normal((NX, NU)), device="cuda")
+    and no solve converges from it.  ``radius`` scales A to that spectral
+    radius (``bench_matrices``); ``u_bound`` bounds every control to
+    [-u_bound, u_bound]."""
+    A, B = (torch.tensor(m, device=device) for m in bench_matrices(radius))
+    bounds = {} if u_bound is None else dict(u_lb=-u_bound, u_ub=u_bound)
 
     def dyn(x, u, t):
         return A.to(x.dtype) @ x + B.to(x.dtype) @ u + 0.01 * torch.tanh(x)
@@ -412,8 +448,9 @@ def bench_problem():
     def cost(x, u, t):
         return 0.5 * (x @ x + 0.1 * (u @ u))
 
-    ocp = BlockStructuredProblem(dyn, cost, T_STAGES, NX, NU, x0=torch.ones(NX), device="cuda")
-    X0 = torch.zeros((T_STAGES + 1, NX), dtype=torch.float64, device="cuda")
+    ocp = BlockStructuredProblem(dyn, cost, T_STAGES, NX, NU, x0=torch.ones(NX), device=device,
+                                 **bounds)
+    X0 = torch.zeros((T_STAGES + 1, NX), dtype=torch.float64, device=device)
     X0[0] = ocp.x0
     return ocp, X0
 
@@ -473,9 +510,10 @@ def timed_solve(problem, settings, x0, device):
     return out, time.perf_counter() - t
 
 
-def count_host_reads(fn):
-    """(synchronizations of the host with the card while ``fn()`` runs, as
-    torch.cuda.set_sync_debug_mode counts them, its result)."""
+def host_read_sites(fn):
+    """(the synchronizations of the host with the card while ``fn()`` runs,
+    as torch.cuda.set_sync_debug_mode reports them, counted by the Python
+    line that made each: a Counter of "file:line"; its result)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -483,7 +521,15 @@ def count_host_reads(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught), out
+    return collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                               if "synchroniz" in str(w.message)), out
+
+
+def count_host_reads(fn):
+    """(synchronizations of the host with the card while ``fn()`` runs, as
+    torch.cuda.set_sync_debug_mode counts them, its result)."""
+    sites, out = host_read_sites(fn)
+    return sum(sites.values()), out
 
 
 def host_reads(problem, settings, x0):
@@ -1583,6 +1629,405 @@ def batch_phase(log, card="cuda"):
     return summary
 
 
+# ---- phase 15: the sharded paths, four ranks on the one card ------------------
+# Four ranks share the card over gloo (NCCL refuses two ranks on one GPU),
+# so the phase measures correctness, not scaling: the ranks run the whole
+# OCP iteration replicated and split only the Schur solve.
+
+RANKS = 4
+RANK_DEADLINE_S = 600.0  # the four ranks, start-up included
+RANK_TIMEOUT_S = 300.0  # one collective
+SCHUR_C, SCHUR_K = 390, 32  # N = 4 * 390 - 1 = 1559 blocks of the OCP's k
+# name, compute_dtype, tridiag_backend
+SHARDED_ROUTES = (("float64", "same", "auto"), ("pallas", "same", "pallas"),
+                  ("mixed", "float32", "auto"))
+
+
+def schur_system(N, k, seed=0):
+    """tests/test_schur_sharded.py's SPD block-tridiagonal system, on the
+    card."""
+    rng = np.random.default_rng(seed)
+    L = rng.standard_normal((N - 1, k, k)) * 0.3
+    M = rng.standard_normal((N, k, k))
+    D = np.einsum("nij,nkj->nik", M, M) + (2.0 + 2 * k) * np.eye(k)
+    b = rng.standard_normal((N, k))
+    return tuple(torch.tensor(a, device="cuda") for a in (D, L, b))
+
+
+def timed(fn, device="cuda"):
+    """(fn(), seconds), between two synchronizations of ``device``."""
+    synchronize(device)
+    t = time.perf_counter()
+    out = fn()
+    synchronize(device)
+    return out, time.perf_counter() - t
+
+
+def to_cpu(state):
+    return pb.tree_map(lambda a: a.cpu(), state)
+
+
+def same_bits(a, b):
+    """Whether two tensors hold the same bits (NaN included)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def rank_main(rank, world, folder):
+    """One rank of phase 15 (``chip_smoke.py --rank R WORLD FOLDER``):
+    the sharded Schur solve on both interior routes, ``ocp_solve(mesh=)``
+    on three routes and ``sharded_solve``; states go to FOLDER, and the
+    last line of standard output is the rank's report (times, launches of
+    B1/B2 and collectives per run)."""
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    ranks.init("file://" + os.path.join(folder, "rendezvous"), rank, world, backend="gloo",
+               timeout_s=RANK_TIMEOUT_S)
+    try:
+        meshes = {axis: ranks.device_mesh("cuda", axis) for axis in ("chunks", "stages", "batch")}
+        report = {}
+
+        def save(obj, name):
+            torch.save(obj, os.path.join(folder, f"{name}.rank{rank}.pt"))
+
+        def run(key, fn):
+            clear_counts()
+            collectives.CALLS.update(all_gather_rows=0, psum=0)
+            out, seconds = timed(fn)
+            report[key] = dict(seconds=seconds, launches=read_counts(), **collectives.CALLS)
+            return out
+
+        D, L, b = schur_system(RANKS * SCHUR_C - 1, SCHUR_K)
+        for backend in ("scan", "pallas"):
+            def schur():
+                return sharded_schur_solve(D, L, b, meshes["chunks"], tridiag_backend=backend)
+            schur()  # set-up on first use, uncounted
+            save(run(f"schur_{backend}", schur).cpu(), f"schur_{backend}")
+
+        ocp, X0 = bench_problem()
+        for name, route, backend in SHARDED_ROUTES:
+            settings = Settings(compute_dtype=route)
+            ocp_perform_iteration(ocp, settings, ocp_initial_state(ocp, settings, X0=X0),
+                                  mesh=meshes["stages"], tridiag_backend=backend)  # set-up
+            out = run(name, lambda: ocp_solve(ocp, settings, X0=X0, max_iterations=50,
+                                              mesh=meshes["stages"], tridiag_backend=backend))
+            report[name]["iterations"] = int(out.iteration)
+            save(to_cpu(out), f"ocp_{name}")
+
+        problem, _ = dense_problem("hs71", "cuda")
+        pb.sharded_solve(problem, Settings(), batch_starts(2 * RANKS), meshes["batch"],
+                         max_iterations=BATCH_MAX_IT)  # set-up
+        out, solved = run("sharded_solve", lambda: pb.sharded_solve(
+            problem, Settings(), batch_starts(1024), meshes["batch"], max_iterations=BATCH_MAX_IT))
+        report["sharded_solve"]["solved"] = int(solved)
+        save(to_cpu(pb.gather_shards(out, meshes["batch"])), "sharded_solve")
+        print(json.dumps(report), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def sharded_phase(log, refs):
+    """Phase 15.  ``refs``: the unsharded OCP states of phases 4, 6 and 3
+    on the card, by route name.  Returns the launches of B1-B6 summed over
+    the ranks and runs."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), BATCH_REF)) as fh:
+        batch_ref = json.load(fh)["runs"]["plain_1024"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as folder:
+        outs, wall = timed(lambda: ranks.spawn(
+            [[sys.executable, os.path.abspath(__file__), "--rank", str(r), str(RANKS), folder]
+             for r in range(RANKS)], RANK_DEADLINE_S))
+        reports = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+
+        def load(name):
+            got = [torch.load(os.path.join(folder, f"{name}.rank{r}.pt"), weights_only=False)
+                   for r in range(RANKS)]
+            for r in range(1, RANKS):
+                check(all(same_bits(a, b) for a, b in zip(pb.tree_leaves(got[r]),
+                                                          pb.tree_leaves(got[0]))),
+                      f"{name}: rank {r} ends with other bits than rank 0")
+            return got[0]
+
+        def summed(key):
+            return {n: sum(rep[key]["launches"][n] for rep in reports) for n in KERNELS}
+
+        log(15, f"{RANKS} ranks on one card over gloo (four ranks sharing one card measure "
+                f"correctness, not scaling); ranks started and joined in {wall:.1f} s")
+        launches = {n: 0 for n in read_counts()}
+        D, L, b = schur_system(RANKS * SCHUR_C - 1, SCHUR_K)
+        x_seq = block_tridiag_solve(D, L, b).cpu()
+        for backend in ("scan", "pallas"):
+            key = f"schur_{backend}"
+            err = float((load(key) - x_seq).abs().max())
+            ms = 1e3 * max(rep[key]["seconds"] for rep in reports)
+            calls = reports[0][key]["all_gather_rows"]
+            sums = summed(key)
+            log(15, f"sharded_schur_solve N={RANKS * SCHUR_C - 1}, k={SCHUR_K}, "
+                    f"tridiag_backend='{backend}': max |x - x_thomas| {err:.3e}; {ms:.2f} ms per "
+                    f"solve (slowest rank); {calls} collectives per solve; launches over the "
+                    f"ranks {sums}")
+            check(err <= 1e-8, f"{key}: x differs from block_tridiag_solve by {err:.3e}")
+            check(calls == 2, f"{key}: {calls} collectives per solve")
+            if backend == "pallas":
+                check(sums["bgj_flat"] > 0, f"{key}: bgj_flat was not launched")
+            for n, v in sums.items():
+                launches[n] += v
+
+        for name, _, backend in SHARDED_ROUTES:
+            st, ref = load(f"ocp_{name}"), refs[name]
+            iters = int(st.iteration)
+            seconds = max(rep[name]["seconds"] for rep in reports)
+            kkt_calls = reports[0][name]["all_gather_rows"] / max(iters, 1)
+            sums = summed(name)
+            u_err = float((st.U - ref.U.cpu()).abs().max())
+            rel_obj = abs(float(st.obj_val) - float(ref.obj_val)) / abs(float(ref.obj_val))
+            log(15, f"ocp_solve(mesh=) {name} ('{backend}') n={T_STAGES * (NX + NU)}: "
+                    f"{solve_summary(st)}; unsharded {int(ref.iteration)} iterations; "
+                    f"max |U - U_unsharded| {u_err:.3e}, objective {rel_obj:.3e} relative; "
+                    f"{seconds:.3f} s per run, {1e3 * seconds / max(iters, 1):.2f} ms per "
+                    f"iteration (slowest rank); {kkt_calls:.2f} collectives per KKT solve; "
+                    f"launches over the ranks {sums}")
+            check(int(st.status) == int(ref.status) == Status.OPTIMAL,
+                  f"sharded {name}: status {int(st.status)}, unsharded {int(ref.status)}")
+            check(kkt_calls == 2, f"sharded {name}: {kkt_calls} collectives per KKT solve")
+            if name == "mixed":
+                check(rel_obj <= 1e-6 and abs(iters - int(ref.iteration)) <= 3,
+                      f"sharded mixed: objective {rel_obj:.3e} relative, iterations {iters} "
+                      f"against {int(ref.iteration)}")
+                check(sums["bgj_blocked64"] > 0, "sharded mixed: bgj_blocked64 was not launched")
+            else:
+                check(iters == int(ref.iteration) and u_err <= 1e-8,
+                      f"sharded {name}: iterations {iters} against {int(ref.iteration)}, "
+                      f"U {u_err:.3e}")
+            if name == "pallas":
+                check(sums["bgj_flat"] > 0, "sharded pallas: bgj_flat was not launched")
+            for n, v in sums.items():
+                launches[n] += v
+
+        whole = load("sharded_solve")
+        gate = batch_gate("sharded_solve B=1024", dict(out=whole, p1=None), batch_ref)
+        gathered = int((whole.status == int(Status.OPTIMAL)).sum())
+        solved = [rep["sharded_solve"]["solved"] for rep in reports]
+        seconds = max(rep["sharded_solve"]["seconds"] for rep in reports)
+        log(15, f"sharded_solve HS71 B=1024 ({1024 // RANKS} lanes a rank): {gate}; psum'd "
+                f"count {solved[0]} on every rank, gathered {gathered}; {seconds:.3f} s per "
+                f"solve (slowest rank), {1024 / seconds:.1f} solves/s; collectives: "
+                f"{reports[0]['sharded_solve']['psum']} psum")
+        check(solved == [gathered] * RANKS, f"sharded_solve: psum'd {solved}, gathered {gathered}")
+        for n, v in summed("sharded_solve").items():
+            check(v == 0, f"sharded_solve launched {n}")
+    return launches
+
+
+# ---- phase 16: the scenario batch of the OCP (batched_ocp_solve) -------------
+
+SCENARIOS = 8
+SCENARIO_RADIUS = 0.95  # bench.py's A scaled: the rollout start stays bounded
+
+
+class OCPTrips:
+    """Counts the trips of the OCP solve loop (calls of
+    ``ocp_perform_iteration``, on all lanes) while active."""
+
+    def __enter__(self):
+        self.count = 0
+        self._inner = ocp_module.ocp_perform_iteration
+
+        def counted(*args, **kwargs):
+            self.count += 1
+            return self._inner(*args, **kwargs)
+
+        ocp_module.ocp_perform_iteration = counted
+        return self
+
+    def __exit__(self, *exc):
+        ocp_module.ocp_perform_iteration = self._inner
+
+
+def ocp_lane_tie(problem, settings, state, lanes):
+    """Certify a lane that parts from its single-lane solve: from each
+    state of the single-lane solve from ``state``, one batched iteration
+    of ``lanes`` copies gives its next state (U, X, lam, status and
+    iteration within the float32 KKT solve's rounding, 1e-6).  Returns the
+    first iteration where it does not, or None."""
+    while int(state.status) == Status.RUNNING:
+        after = ocp_perform_iteration(problem, settings, state)
+        copies = pb.tree_map(lambda a: a[None].expand(lanes, *a.shape).clone(), state)
+        got = pb.lane(vmap_lanes(lambda s: ocp_perform_iteration(problem, settings, s), copies),
+                      lanes // 2)
+        same = (int(got.status) == int(after.status) and int(got.iteration) == int(after.iteration)
+                and all(float((getattr(got, f) - getattr(after, f)).abs().max()) <= 1e-6
+                        for f in ("U", "X", "lam")))
+        if not same:
+            return int(state.iteration)
+        state = after
+    return None
+
+
+class MeritCalls:
+    """Counts the evaluations of ``problem.merit`` (one an Armijo trial,
+    one more at the step taken; one call for all lanes under ``vmap``)
+    while active."""
+
+    def __init__(self, problem):
+        self.problem = problem
+
+    def __enter__(self):
+        self.count = 0
+        inner = self.problem.merit
+
+        def counted(*args, **kwargs):
+            self.count += 1
+            return inner(*args, **kwargs)
+
+        self.problem.merit = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.problem.merit  # the class's method again
+
+
+# (scenario set, control bound, route): controls free, where the lanes
+# move together, on both routes; controls bounded to [-0.3, 0.3], where
+# the lanes saturate different controls, backtrack apart and stop on
+# different trips, on the mixed route, which folds B1/B2 (the float64
+# route's lanes take the same trips there; the set costs it ~130 s)
+U_BOUND = 0.3
+SCENARIO_RUNS = (("free", None, "float64"), ("free", None, "mixed"), ("bounded", U_BOUND, "mixed"))
+
+
+def batched_ocp_phase(log, card="cuda"):
+    """Phase 16 (``card="cpu"`` rehearses it, host reads counted as truth
+    values read): B = 8 scenarios at bench.py's widths (T = 1560, nx = nu
+    = 32) through ``batched_ocp_solve`` on both routes and both scenario
+    sets (the bounded one on the mixed route), each lane held to the
+    port's single-lane solve from its initial state.  With free controls the lanes move together, and the host reads
+    per loop trip (counted from the initial states on) and bgj_blocked64
+    launches per trip must equal the single lane's.  With bounded controls
+    the lanes must stop on different trips and backtrack apart (the per-lane
+    freeze and the masked Armijo trials on the card); bgj_blocked64 is
+    launched as often as for the slowest lane, and a read or a merit
+    evaluation of the batch serves all lanes (no more than the single lanes'
+    sum, no fewer than the slowest one's).  Returns the launches of B1-B6
+    in the batched solves."""
+    A, _ = bench_matrices(SCENARIO_RADIUS)
+    x0s = torch.ones((SCENARIOS, NX), dtype=torch.float64, device=card) + 0.05 * torch.arange(
+        SCENARIOS, dtype=torch.float64, device=card)[:, None]
+    log(16, f"bench.py's problem with A scaled to spectral radius "
+            f"{np.abs(np.linalg.eigvals(A)).max():.6f}; lane b from x0 = 1 + 0.05 b, "
+            f"B={SCENARIOS}, T={T_STAGES}, n={T_STAGES * (NX + NU)} a lane; controls free, "
+            f"and bounded to [-{U_BOUND}, {U_BOUND}]")
+
+    def sites(fn):
+        if card == "cuda":
+            return host_read_sites(fn)
+        n, out = count_bool_reads(fn)
+        return collections.Counter(truth_values=n), out
+
+    launches = {n: 0 for n in read_counts()}
+    for kind, u_bound, route in SCENARIO_RUNS:
+        settings = Settings(compute_dtype=ROUTE_SETTINGS[route])
+        ocp, _ = bench_problem(SCENARIO_RADIUS, device=card, u_bound=u_bound)
+        tag = f"batched {route} {kind}"
+
+        def solve_from(state):
+            return ocp_solve_from(ocp, settings, state, 50)
+
+        singles = []
+        for b in range(SCENARIOS):
+            state0 = ocp_initial_state(ocp, settings, x0=x0s[b], device=card)
+            clear_counts()
+            with OCPTrips() as trips, MeritCalls(ocp) as merits:
+                reads, (st, seconds) = sites(lambda: timed(lambda: solve_from(state0), card))
+            singles.append(dict(state=st, state0=state0, reads=reads, trips=trips.count,
+                                merits=merits.count, seconds=seconds,
+                                b2=read_counts()["bgj_blocked64"]))
+        # the entry point, as a user calls it: its launches and time
+        clear_counts()
+        with OCPTrips() as trips:
+            out, seconds = timed(lambda: batched_ocp_solve(ocp, settings, x0s, max_iterations=50,
+                                                           device=card), card)
+        counts = read_counts()
+        for n, v in counts.items():
+            launches[n] += v
+        # the same loop from the batched initial states: its host reads,
+        # merit evaluations and time a trip, as the single lanes' above
+        states0 = vmap_lanes(lambda x: ocp_initial_state(ocp, settings, x0=x, device=card), x0s)
+        with MeritCalls(ocp) as merits:
+            reads, (again, loop_s) = sites(lambda: timed(lambda: vmap_lanes(solve_from, states0),
+                                                         card))
+        check(torch.equal(again.U, out.U), f"{tag}: the loop from the batched initial states "
+                                           f"parts from batched_ocp_solve")
+        check(out.U.shape == (SCENARIOS, T_STAGES, NU) and bool(torch.isfinite(out.U).all()),
+              f"{tag}: U of shape {tuple(out.U.shape)} or not finite")
+        ties = []
+        for b, one in enumerate(singles):
+            st = one["state"]
+            check(int(out.status[b]) == int(st.status) == Status.OPTIMAL,
+                  f"{tag} lane {b}: status {int(out.status[b])}, single {int(st.status)}")
+            u_err = float((out.U[b] - st.U).abs().max())
+            same_it = int(out.iteration[b]) == int(st.iteration)
+            if route == "float64":
+                check(same_it and u_err <= 1e-10, f"{tag} lane {b}: iterations "
+                      f"{int(out.iteration[b])} against {int(st.iteration)}, U {u_err:.3e}")
+            elif not (same_it and u_err <= 1e-6):
+                at = ocp_lane_tie(ocp, settings, one["state0"], SCENARIOS)
+                check(at is None, f"{tag} lane {b} parts from its single-lane solve "
+                                  f"(U {u_err:.3e}) and one batched iteration from the single "
+                                  f"lane's state {at} parts from its next")
+                ties.append(b)
+        u_max = max(float((out.U[b] - one["state"].U).abs().max()) for b, one in enumerate(singles))
+        spread = float((out.U[1:] - out.U[:1]).abs().amax(dim=(1, 2)).min())
+        check(spread > 1e-3, f"{tag}: lanes differ by only {spread:.3e}")
+        # the single lane that iterates longest makes as many loop trips
+        slow = max(singles, key=lambda one: one["trips"])
+        n_reads, n_slow = sum(reads.values()), sum(slow["reads"].values())
+        lane_reads = [sum(one["reads"].values()) for one in singles]
+        lane_merits = [one["merits"] for one in singles]
+        # merit evaluations beyond the one trial and the one at the step of
+        # an iteration: the Armijo backtracks of the lane
+        backtracks = [one["merits"] - 2 * int(one["state"].iteration) for one in singles]
+        log(16, f"{tag} on the {'card' if card == 'cuda' else 'CPU'}: "
+                f"{SCENARIOS}/{SCENARIOS} OPTIMAL, iterations {out.iteration.tolist()} as the "
+                f"single lanes'" + (f" but the certified ties {ties}" if ties else "")
+                + f"; rejected steps {out.num_rejected.tolist()}; max |U - U_single| "
+                f"{u_max:.3e}; lanes differ by >= {spread:.3e}; {seconds:.3f} s per batch (the "
+                f"rollouts included), {1e3 * loop_s / trips.count:.2f} ms per lockstep trip "
+                f"({trips.count} trips); single lanes {sum(o['seconds'] for o in singles):.3f} s "
+                f"in all, {1e3 * slow['seconds'] / slow['trips']:.2f} ms per trip; host reads "
+                f"per trip {n_reads / trips.count:.2f} (single lanes "
+                + ", ".join(f"{r / one['trips']:.2f}" for r, one in zip(lane_reads, singles))
+                + f"), merit evaluations {merits.count} (single lanes {lane_merits}; Armijo "
+                f"backtracks {backtracks}), bgj_blocked64 per trip "
+                f"{counts['bgj_blocked64'] / trips.count:.2f} (single lane "
+                f"{slow['b2'] / slow['trips']:.2f}); launches {counts}")
+        check(trips.count == slow["trips"], f"{tag}: {trips.count} trips, the slowest "
+                                            f"single lane {slow['trips']}")
+        check(counts["bgj_blocked64"] == slow["b2"],
+              f"{tag}: bgj_blocked64 launches {counts['bgj_blocked64']} over the batch, the "
+              f"slowest single lane {slow['b2']}")
+        if kind == "free":
+            check(n_reads == n_slow, f"{tag}: host reads {n_reads} over the batch, the single "
+                  f"lane {n_slow}; reads by site, batch minus single lane: "
+                  f"{dict(reads - slow['reads'])}, single lane minus batch: "
+                  f"{dict(slow['reads'] - reads)}")
+        else:
+            check(len(set(out.iteration.tolist())) > 1 and len(set(backtracks)) > 1
+                  and max(backtracks) > 0,
+                  f"{tag}: the lanes do not part (iterations {out.iteration.tolist()}, "
+                  f"backtracks {backtracks})")
+            check(max(lane_reads) <= n_reads <= sum(lane_reads)
+                  and max(lane_merits) <= merits.count <= sum(lane_merits),
+                  f"{tag}: host reads {n_reads} (single lanes {lane_reads}) or merit "
+                  f"evaluations {merits.count} (single lanes {lane_merits}) of the batch outside "
+                  f"[the slowest lane's, the lanes' sum]")
+        if route == "mixed":
+            check(counts["bgj_blocked64"] > 0 or card != "cuda",
+                  f"{tag}: bgj_blocked64 was not launched")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1643,22 +2088,63 @@ def main():
             check(rel <= KERNEL_RTOL, f"{name} ({B},{k}) disagrees with its plain version: {rel:.3e}")
             check(ident_k < 1e-4, f"{name} ({B},{k}) identity error {ident_k:.3e} >= 1e-4")
 
-    # each batch the main paths launch the inverses on: B1 at the levels of
-    # the OCP's dual Schur complement (T = 1560, k = 32), eleven a mixed
-    # iteration; B2 on the stage Hessians (T + 1 blocks of 64), once a mixed
-    # iteration, and at the levels of cr32 on the structured KKT (N = 160)
+    # each batch the main paths launch the inverses on, each held to its
+    # plain version as the shapes above: B1 at the levels of the OCP's dual
+    # Schur complement (T = 1560, k = 32), eleven a mixed iteration, and at
+    # the levels of cr32 on a rank's interior in phase 15 (the sharded Schur
+    # solve's 389 blocks, the sharded OCP's 390); B2 on the stage Hessians
+    # (T + 1 blocks of 64), once a mixed iteration, and at the levels of
+    # cr32 on the structured KKT (N = 160); and, with the lanes folded into
+    # one launch, a lockstep trip of phase 16's eight mixed scenarios
     for name, k, batches, per in (
         ("bgj_flat", NX, cr_batches(T_STAGES), "mixed OCP iteration"),
         ("bgj_blocked64", NX + NU, [T_STAGES + 1], "mixed OCP iteration"),
         ("bgj_blocked64", 64, cr_batches(160), "cr32 factorization at N = 160"),
+        ("bgj_flat", SCHUR_K, cr_batches(SCHUR_C - 1),
+         f"cr32 factorization of a rank's {SCHUR_C - 1}-block interior"),
+        ("bgj_flat", NX, cr_batches(-(-(T_STAGES + 1) // RANKS) - 1),
+         "cr32 factorization of a rank's interior of the sharded OCP"),
+        ("bgj_flat", NX, [SCENARIOS * n for n in cr_batches(T_STAGES)],
+         f"trip of {SCENARIOS} mixed scenarios"),
+        ("bgj_blocked64", NX + NU, [SCENARIOS * (T_STAGES + 1)],
+         f"trip of {SCENARIOS} mixed scenarios"),
     ):
-        times = {}
+        times, rels, idents = {}, [], []
         for B in batches:
             C = spd_blocks(B, k, seed=B + k)
+            K, P = KERNELS[name]["fn"](C), KERNELS[name]["plain"](C)
+            check(bool(torch.isfinite(K).all()), f"{name} ({B},{k}): non-finite output")
+            rels.append(rel_fro_diff(K, P))
+            idents.append(identity_error(K, C))
+            check(rels[-1] <= KERNEL_RTOL,
+                  f"{name} ({B},{k}) disagrees with its plain version: {rels[-1]:.3e}")
+            check(idents[-1] < 1e-4, f"{name} ({B},{k}) identity error {idents[-1]:.3e} >= 1e-4")
             times[B] = graph_ms(lambda: KERNELS[name]["fn"](C))
         log(2, f"{name} at k={k}, ms by batch (CUDA graph): "
                + ", ".join(f"{B}: {t:.4f}" for B, t in times.items())
-               + f"; sum per {per} ({len(batches)} launches) {sum(times.values()):.4f} ms")
+               + f"; sum per {per} ({len(batches)} launches) {sum(times.values()):.4f} ms; "
+               f"against the plain version at every batch: rel fro <= {max(rels):.3e}, "
+               f"identity error <= {max(idents):.3e}")
+
+    # the operators under torch.func.vmap, as batched_ocp_solve calls them:
+    # the lanes of the main path's largest batch in one launch, each lane
+    # held to the plain version of its own blocks
+    for name, (B, k) in ((n, spec["shapes"][0]) for n, spec in KERNELS.items()):
+        lanes = torch.stack([spd_blocks(B, k, seed=B + k + b) for b in range(SCENARIOS)])
+        before = read_counts()[name]
+        K = torch.func.vmap(KERNELS[name]["fn"])(lanes)
+        torch.cuda.synchronize()
+        calls = read_counts()[name] - before
+        rels = [rel_fro_diff(K[b], KERNELS[name]["plain"](lanes[b])) for b in range(SCENARIOS)]
+        idents = [identity_error(K[b], lanes[b]) for b in range(SCENARIOS)]
+        log(2, f"torch.func.vmap({name}) on ({SCENARIOS}, {B}, {k}, {k}): {calls} launch(es); "
+               f"each lane against the plain version: rel fro <= {max(rels):.3e}, identity "
+               f"error <= {max(idents):.3e}")
+        check(calls == 1, f"vmap({name}): {calls} launches for {SCENARIOS} lanes")
+        check(bool(torch.isfinite(K).all()) and max(rels) <= KERNEL_RTOL and max(idents) < 1e-4,
+              f"vmap({name}) disagrees with its plain version lane by lane: rel {max(rels):.3e}, "
+              f"identity error {max(idents):.3e}")
+    del lanes, K
 
     # -- phase 2, continued: the block-Thomas kernels ----------------------
     for i, (N, k, r) in enumerate(THOMAS_SHAPES):
@@ -1975,14 +2461,23 @@ def main():
     check(not any(launches_batch.values()),
           f"the batched phase launched a kernel of B1-B6: {launches_batch}")
 
-    # -- phase 15: report --------------------------------------------------
+    # -- phase 15: the sharded paths, four ranks on the card -----------------
+    launches_sharded = sharded_phase(log, dict(float64=ref, pallas=pal, mixed=out))
+    log(15, f"launches of B1-B6 over the ranks: {launches_sharded}")
+
+    # -- phase 16: the scenario batch of the OCP ------------------------------
+    launches_scen = batched_ocp_phase(log)
+    log(16, f"launches of B1-B6 in the batched solves: {launches_scen}")
+
+    # -- phase 17: report --------------------------------------------------
     kernels = [
-        dict(rec, launches=launches[name] + launches_kkt[name] + launches_pal[name])
+        dict(rec, launches=launches[name] + launches_kkt[name] + launches_pal[name]
+             + launches_sharded[name] + launches_scen[name])
         for name, rec in results.items()
     ]
     check(len(kernels) == 6 and all(r["launches"] > 0 for r in kernels),
           f"a kernel was not launched on the main paths: {kernels}")
-    log(15, f"all checks passed on '{card}'")
+    log(17, f"all checks passed on '{card}'")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1993,4 +2488,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -26,6 +26,7 @@ from .banded import BandedProblem, banded_solve
 from .ocp import (
     BlockStructuredProblem,
     OCPState,
+    batched_ocp_solve,
     ocp_initial_state,
     ocp_perform_iteration,
     ocp_solve,
@@ -86,6 +87,7 @@ __all__ = [
     "StepType",
     "TRSolver",
     "banded_solve",
+    "batched_ocp_solve",
     "create_iterate",
     "initial_state",
     "ocp_initial_state",

@@ -84,6 +84,22 @@ def tree_where(pred: Tensor, a, b):
                       for f in dataclasses.fields(a)})
 
 
+def vmap_lanes(fn: Callable[..., Any], *trees: Any) -> Any:
+    """``torch.func.vmap(fn)`` over states: every tensor of ``trees`` has
+    the lane dimension first, and so has every tensor of the result."""
+    flat = [tree_leaves(t) for t in trees]
+    out_like = []
+
+    def inner(*leaves):
+        it = iter(leaves)
+        out = fn(*(tree_unflatten(t, it) for t in trees))
+        out_like.append(out)
+        return tuple(tree_leaves(out))
+
+    outs = torch.func.vmap(inner)(*(t for leaves in flat for t in leaves))
+    return tree_unflatten(out_like[0], iter(outs))
+
+
 def lanes_where(pred: Any, a, b):
     """``tree_where(pred, a, b)`` after a branch entered on
     ``lanes_any(pred)``: outside ``vmap`` ``pred`` held, so ``a`` is taken

@@ -22,6 +22,10 @@ float32 refinement; the state, merit and residuals stay float64.
 ``tridiag_backend`` (``ocp_solve``) swaps the solve of S for another:
 ``"pallas"`` puts the float64 route on float32 cyclic reduction with
 float64 refinement (``ops/pallas_tridiag.block_tridiag_solve_mp``).
+``mesh=`` (a 1-D ``DeviceMesh``, ``parallel/ranks.py``) solves S across the
+ranks of its axis ``mesh_axis`` (``parallel/schur.py``): every rank runs the
+whole iteration on the same data, replicated, and only the Schur solve is
+split by chunks, so the ranks' host reads agree bit for bit.
 
 Precision: the float32 products here run in full float32 on the card (TF32
 is switched off, ``kernels/_build.require_full_fp32``).  The TPU ran the
@@ -31,7 +35,13 @@ same float64 tolerances either way.
 
 The JAX package's ``jit``/``while_loop`` become eager PyTorch and Python
 loops: the solve loop, the linesearch and the forward rollout run on the
-host and read a few scalars back from the card each iteration.
+host and read a few scalars back from the card each iteration.  The loops
+are ``lanes.lockstep`` bodies and the branches ``lanes.lanes_any`` reads
+with lane selects, so ``batched_ocp_solve`` runs the same iteration under
+``torch.func.vmap`` over a batch of initial states (the reference's
+``vmap`` of ``ocp_solve_jit``), one host read a loop trip or a branch for
+all lanes: an iteration reads the loop's flag, the early stop, the descent
+flag and one Armijo flag a trial, alone or in a batch.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and without
 a CUDA device they raise; pass ``device="cpu"`` to run on the CPU.
@@ -45,12 +55,17 @@ from typing import Any, Callable, Optional
 
 import torch
 from torch.func import grad, jacrev, vjp, vmap
+from torch.nn.functional import pad
 
 from .kernels._build import require_full_fp32
-from .ops.block_tridiag import block_tridiag_solve, cholesky_or_nan, spike_block_tridiag_solve
+from .lanes import is_batched, lanes_any, lockstep, tree_where, vmap_lanes
+from .ops.block_tridiag import (block_tridiag_solve, cholesky_or_nan, pad_identity, pad_zeros,
+                                spike_block_tridiag_solve)
 from .ops.cyclic_reduction import batched_gj_inverse, cr_factor, cr_resolve
 from .ops.pallas_tridiag import _spike_chunks, block_tridiag_matvec, block_tridiag_solve_mp
 from .device import resolve_device
+from .parallel.collectives import axis_group
+from .parallel.schur import sharded_schur_solve
 from .settings import Settings
 from .types import DTYPE_MISMATCH, Status
 
@@ -245,9 +260,10 @@ class BlockStructuredProblem:
 
         # terminal block, padded to nz with an identity control part
         g_term = torch.cat([gf, torch.zeros(nu, dtype=gf.dtype, device=gf.device)])
-        H_term = torch.zeros((nz, nz), dtype=hdtype, device=X.device)
-        H_term[:nx, :nx] = Hf
-        H_term[nx:, nx:] = torch.eye(nu, dtype=hdtype, device=X.device)
+        zeros = torch.zeros((nx, nu), dtype=hdtype, device=X.device)
+        H_term = torch.cat([torch.cat([Hf, zeros], dim=1),
+                            torch.cat([zeros.mT, torch.eye(nu, dtype=hdtype, device=X.device)],
+                                      dim=1)], dim=0)
 
         g = torch.cat([g_stage, g_term[None]], dim=0)
         H = torch.cat([H_stage, H_term[None]], dim=0)
@@ -356,31 +372,43 @@ def ocp_initial_state(
     )
 
 
-def _structured_kkt_step(problem, c, g, G, H, frozen, reg, mesh=None, tridiag_backend="auto"):
+def _pad_tridiag(S_diag: Tensor, S_sub: Tensor, rhs: Tensor, num_chunks: int):
+    """Pad a block-tridiagonal system with identity blocks so that N + 1 is
+    divisible by num_chunks (the sharded layout's requirement); returns the
+    padded system and the true N."""
+    N, k, _ = S_diag.shape
+    c = max(-(-(N + 1) // num_chunks), 2)  # ceil, at least one interior block
+    pad = num_chunks * c - 1 - N
+    if pad == 0:
+        return S_diag, S_sub, rhs, N
+    D, L = pad_identity(S_diag, S_sub, pad)
+    return D, L, pad_zeros(rhs, pad), N
+
+
+def _structured_kkt_step(problem, c, g, G, H, frozen, reg, mesh=None, mesh_axis="stages",
+                         tridiag_backend="auto"):
     """Solve the equality-constrained QP via the dual Schur complement.
 
         min 1/2 d^T H d + g^T d   s.t.  J d = -c,  d[frozen] = 0
 
     J row t applies G_t to block t and -P (state selector) to block t+1.
-    S = J H^-1 J^T is block-tridiagonal SPD.
+    S = J H^-1 J^T is block-tridiagonal SPD; it is solved on this rank, or
+    across the ranks of ``mesh``'s axis ``mesh_axis`` (``parallel/schur.py``).
 
     Returns (d (T+1, nz), lam (T, nx)) in H's dtype: the solve runs in the
     dtype the quadratic model was assembled in (float32 under the mixed
     configuration; callers cast the step back to the problem dtype).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded Schur solve (mesh=..., parallel/schur.py) is not "
-            "ported yet (ROADMAP.md queue A item 11b)"
-        )
     dtype = H.dtype
     free = (~frozen).to(dtype)  # (T+1, nz)
     return _structured_kkt_core(
-        problem, c.to(dtype), g.to(dtype), G, H, free, reg.to(dtype), tridiag_backend
+        problem, c.to(dtype), g.to(dtype), G, H, free, reg.to(dtype), mesh, mesh_axis,
+        tridiag_backend,
     )
 
 
-def _structured_kkt_core(problem, c, g, G, H, free, reg, tridiag_backend="auto"):
+def _structured_kkt_core(problem, c, g, G, H, free, reg, mesh=None, mesh_axis="stages",
+                         tridiag_backend="auto"):
     T, nx, nz = problem.T, problem.nx, problem.nz
     dtype = H.dtype
 
@@ -424,7 +452,13 @@ def _structured_kkt_core(problem, c, g, G, H, free, reg, tridiag_backend="auto")
     # rhs = c - J H^-1 g
     rhs = c - (torch.einsum("tij,tj->ti", Gm, hg[:T]) - hg[1:, :nx] * free_x)
 
-    if use_bgj:
+    if mesh is not None:
+        _, num_chunks, _ = axis_group(mesh, mesh_axis)
+        Sd, Ss, r, n_true = _pad_tridiag(S_diag, S_sub, rhs, num_chunks)
+        lam = sharded_schur_solve(
+            Sd, Ss, r, mesh, axis_name=mesh_axis, tridiag_backend=tridiag_backend
+        )[:n_true]
+    elif use_bgj:
         # float32 block cyclic reduction with one float32 self-refinement,
         # which restores backward-stable residuals over the explicit
         # inverses of the levels
@@ -442,10 +476,10 @@ def _structured_kkt_core(problem, c, g, G, H, free, reg, tridiag_backend="auto")
     else:
         lam = block_tridiag_solve(S_diag, S_sub, rhs)
 
-    # d = -H^-1 (g + J^T lam)
-    jtl = torch.zeros((T + 1, nz), dtype=dtype, device=H.device)
-    jtl[:T] += torch.einsum("tij,ti->tj", Gm, lam)
-    jtl[1:, :nx] += -lam * free_x
+    # d = -H^-1 (g + J^T lam), J^T lam assembled by padding (no index write
+    # into a buffer, which vmap would refuse for a lane's values)
+    jtl = pad(torch.einsum("tij,ti->tj", Gm, lam), (0, 0, 0, 1)) + pad(
+        -lam * free_x, (0, nz - nx, 1, 0))
     d = -solve_with(slice(None), (gm + jtl)[:, :, None])[:, :, 0]
     return d, lam
 
@@ -502,13 +536,16 @@ def ocp_perform_iteration(
     settings: Settings,
     state: OCPState,
     mesh=None,
+    mesh_axis: str = "stages",
     tridiag_backend: str = "auto",
 ) -> OCPState:
     """One structured SQP iteration (problem_solver/iteration.c:350
     specialized to the block-structured subproblem layers).  Runs where
-    ``state`` lives; ``tridiag_backend`` as for ``ocp_solve``."""
+    ``state`` lives; ``mesh``, ``mesh_axis`` and ``tridiag_backend`` as for
+    ``ocp_solve``.  Under ``vmap`` (``batched_ocp_solve``) a lane that
+    stops takes its stopped state while the others step."""
     problem = problem.to(state.X.device)
-    T, nx, nz = problem.T, problem.nx, problem.nz
+    T, nx, nu = problem.T, problem.nx, problem.nu
     dtype, dev = problem.dtype, problem.device
     X, U = state.X, state.U
     if dev.type == "cuda":
@@ -528,27 +565,34 @@ def ocp_perform_iteration(
         Jt_lam = problem.constraint_vjp(X, U, state.lam)
     stat_res, r_u, r_x, r_stat = _stationarity(problem, X, U, g, Jt_lam, state.lam)
 
-    optimal = bool((feas_res <= settings.feas_tol) & (stat_res <= settings.stat_tol))
-    deadpoint = bool(state.reg >= REG_MAX)
-    if optimal or deadpoint:
-        status = Status.OPTIMAL if optimal else Status.ABORT_DEADPOINT
-        return dataclasses.replace(
-            state,
-            status=torch.tensor(int(status), dtype=torch.int32, device=dev),
-            feas_res=feas_res,
-            stat_res=stat_res,
-        )
+    optimal = (feas_res <= settings.feas_tol) & (stat_res <= settings.stat_tol)
+    deadpoint = state.reg >= REG_MAX
+    stop = optimal | deadpoint
+
+    def stopped():
+        status = torch.where(optimal, int(Status.OPTIMAL), int(Status.ABORT_DEADPOINT))
+        return dataclasses.replace(state, status=status.to(torch.int32), feas_res=feas_res,
+                                   stat_res=stat_res)
+
+    if not lanes_any(~stop):
+        return stopped()
+    # lanes that stop go on with the others and take their stopped state at
+    # the end
+    stop_state = stopped() if is_batched(stop) else None
 
     # ---- active-set freeze + structured KKT step -----------------------
-    frozen = torch.zeros((T + 1, nz), dtype=torch.bool, device=dev)
-    frozen[0, :nx] = True  # x_0 fixed
-    frozen[T, nx:] = True  # dummy terminal control
+    # x_0 fixed, the dummy terminal control frozen; bound-active controls
+    # and states x_1..x_T from the reduced gradient
+    fixed_x = torch.ones((1, nx), dtype=torch.bool, device=dev)
+    fixed_u = torch.ones((1, nu), dtype=torch.bool, device=dev)
+    frozen_u = torch.zeros((T, nu), dtype=torch.bool, device=dev)
+    frozen_x = torch.zeros((T, nx), dtype=torch.bool, device=dev)
     if problem.has_bounds:
-        frozen[:T, nx:] = _bound_active_set(U, problem.u_lb, problem.u_ub, r_u, settings.eps)
+        frozen_u = _bound_active_set(U, problem.u_lb, problem.u_ub, r_u, settings.eps)
     if problem.has_state_bounds:
-        frozen[1:, :nx] = _bound_active_set(
-            X[1:], problem.x_lb, problem.x_ub, r_x, settings.eps
-        )
+        frozen_x = _bound_active_set(X[1:], problem.x_lb, problem.x_ub, r_x, settings.eps)
+    frozen = torch.cat([torch.cat([fixed_x, frozen_x], dim=0),
+                        torch.cat([frozen_u, fixed_u], dim=0)], dim=1)
 
     # The QP is solved in delta form around the current multiplier:
     # gradient = the float64 stationarity residual r = g + J^T lam (small
@@ -556,14 +600,14 @@ def ocp_perform_iteration(
     # rhs then subtracts O(residual) quantities instead of O(1) ones, which
     # lets the float32 solve converge to float64 tolerances.
     d, dlam = _structured_kkt_step(
-        problem, c, r_stat, G, H, frozen, state.reg, mesh=mesh, tridiag_backend=tridiag_backend
+        problem, c, r_stat, G, H, frozen, state.reg, mesh=mesh, mesh_axis=mesh_axis,
+        tridiag_backend=tridiag_backend,
     )
     d = d.to(dtype)
     lam_qp = state.lam + dlam.to(dtype)
-    step_ok = bool(torch.isfinite(d).all() & torch.isfinite(lam_qp).all())
-    if not step_ok:
-        d = torch.zeros_like(d)
-        lam_qp = state.lam
+    step_ok = torch.isfinite(d).all() & torch.isfinite(lam_qp).all()
+    d = torch.where(step_ok, d, 0.0)
+    lam_qp = torch.where(step_ok, lam_qp, state.lam)
 
     # ---- penalty kept above the multiplier scale (penalty.c:5-50) ------
     lam_norm = _max0(lam_qp.abs())
@@ -592,18 +636,19 @@ def ocp_perform_iteration(
         Ua = torch.clamp(U + alpha * dU, problem.u_lb, problem.u_ub)
         return Xa, Ua
 
-    has_descent = bool(descent > 0.0) and step_ok
-    alpha = 1.0
-    accepted = False
-    if has_descent:
-        for _ in range(MAX_LINESEARCH_STEPS):
-            merit_a = problem.merit(*trial_point(alpha), penalty)
-            if bool(merit_a <= merit0 - settings.linesearch_eta * alpha * descent):
-                accepted = True
-                break
-            alpha = settings.linesearch_tau * alpha
-    if not accepted:
-        alpha = 0.0
+    def trial(carry, trip):
+        alpha, _ = carry
+        merit_a = problem.merit(*trial_point(alpha), penalty)
+        armijo = merit_a <= merit0 - settings.linesearch_eta * alpha * descent
+        return torch.where(armijo, alpha, settings.linesearch_tau * alpha), armijo
+
+    has_descent = (descent > 0.0) & step_ok
+    carry = (torch.ones((), dtype=dtype, device=dev), torch.zeros((), dtype=torch.bool, device=dev))
+    if lanes_any(has_descent):
+        carry = lockstep(lambda c: has_descent & ~c[1], trial, carry,
+                         max_trips=MAX_LINESEARCH_STEPS, first=has_descent)
+    accepted = carry[1] & has_descent
+    alpha = torch.where(accepted, carry[0], 0.0)
 
     X_new, U_new = trial_point(alpha)
     merit_trial = problem.merit(X_new, U_new, penalty)
@@ -615,32 +660,58 @@ def ocp_perform_iteration(
     ratio = torch.where(tiny, 1.0, actual / torch.where(pred == 0.0, 1.0, pred))
 
     # ---- Levenberg update with the trust_radius.c:47-84 thresholds -----
-    if accepted:
-        reg_new = torch.where(
-            ratio >= 0.9,
-            torch.clamp(state.reg / 7.0, min=REG_MIN),
-            torch.where(ratio >= 0.3, torch.clamp(state.reg / 2.0, min=REG_MIN), state.reg),
-        )
-    else:
-        reg_new = torch.clamp(torch.clamp(10.0 * state.reg, min=REG_FAIL), max=REG_MAX)
-    X_next, U_next = (X_new, U_new) if accepted else (X, U)
+    reg_accept = torch.where(
+        ratio >= 0.9,
+        torch.clamp(state.reg / 7.0, min=REG_MIN),
+        torch.where(ratio >= 0.3, torch.clamp(state.reg / 2.0, min=REG_MIN), state.reg),
+    )
+    reg_reject = torch.clamp(torch.clamp(10.0 * state.reg, min=REG_FAIL), max=REG_MAX)
+    X_next = torch.where(accepted, X_new, X)
+    U_next = torch.where(accepted, U_new, U)
 
-    return OCPState(
+    out = OCPState(
         X=X_next,
         U=U_next,
         lam=lam_qp,
         penalty=penalty,
-        reg=reg_new,
+        reg=torch.where(accepted, reg_accept, reg_reject),
         iteration=state.iteration + 1,
         status=torch.tensor(int(Status.RUNNING), dtype=torch.int32, device=dev),
-        num_accepted=state.num_accepted + int(accepted),
-        num_rejected=state.num_rejected + int(not accepted),
+        num_accepted=state.num_accepted + accepted.to(torch.int32),
+        num_rejected=state.num_rejected + (~accepted).to(torch.int32),
         obj_val=problem.total_cost(X_next, U_next),
         feas_res=feas_res,
         stat_res=stat_res,
         last_ratio=ratio,
-        last_alpha=torch.tensor(alpha, dtype=dtype, device=dev),
+        last_alpha=alpha,
     )
+    return out if stop_state is None else tree_where(stop, stop_state, out)
+
+
+def ocp_solve_from(
+    problem: BlockStructuredProblem,
+    settings: Settings,
+    state: OCPState,
+    max_iterations: int = 100,
+    mesh=None,
+    mesh_axis: str = "stages",
+    tridiag_backend: str = "auto",
+) -> OCPState:
+    """Iterate from ``state`` until OPTIMAL, a dead point or
+    ``max_iterations`` (then ABORT_ITER), as ``ocp_solve_jit``'s
+    ``while_loop`` does (solve.c:95-252): one host read a trip.  Under
+    ``vmap`` the lanes iterate in lockstep until every one has stopped."""
+
+    def running(s):
+        return (s.status == int(Status.RUNNING)) & (s.iteration < max_iterations)
+
+    def step(s, trip):
+        return ocp_perform_iteration(problem, settings, s, mesh=mesh, mesh_axis=mesh_axis,
+                                     tridiag_backend=tridiag_backend)
+
+    state = lockstep(running, step, state)
+    status = torch.where(state.status == int(Status.RUNNING), int(Status.ABORT_ITER), state.status)
+    return dataclasses.replace(state, status=status.to(torch.int32))
 
 
 def ocp_solve(
@@ -650,31 +721,64 @@ def ocp_solve(
     X0: Optional[Any] = None,
     max_iterations: int = 100,
     mesh=None,
+    mesh_axis: str = "stages",
     tridiag_backend: str = "auto",
     device: Any = None,
 ) -> OCPState:
-    """Initialize and iterate until OPTIMAL, a dead point or
-    ``max_iterations`` (then ABORT_ITER), as ``ocp_solve_jit``'s
-    ``while_loop`` does (solve.c:95-252).  Runs on ``device``: ``None``
-    means CUDA, which raises when no CUDA device is present.
+    """Initialize (``ocp_initial_state``) and iterate (``ocp_solve_from``).
+    Runs on ``device``: ``None`` means CUDA, which raises when no CUDA
+    device is present.
 
     ``tridiag_backend`` picks the solve of the dual Schur complement S:
     ``"auto"``/``"cr"`` as above; ``"pallas"`` ``block_tridiag_solve_mp``
     (float32 factorization with refinement in S's dtype: cyclic reduction
     for float64, the scan for float32); ``"spike"`` the SPIKE solve on the
     float32 route; anything else the block-Thomas scan.  Every value other
-    than ``"auto"``/``"cr"`` factors the stage Hessians by Cholesky."""
+    than ``"auto"``/``"cr"`` factors the stage Hessians by Cholesky.
+
+    ``mesh`` (a 1-D ``DeviceMesh``) solves S across the ranks of its axis
+    ``mesh_axis`` by ``parallel/schur.sharded_schur_solve`` instead, S
+    padded with identity blocks to the chunk layout; ``tridiag_backend=
+    "pallas"`` then eliminates each rank's interior by
+    ``block_tridiag_solve_mp``, any other value by the block-Thomas
+    recursion, and the float32 route still inverts the stage Hessians by
+    the batched kernels.  Every rank of the axis calls ``ocp_solve`` with
+    the same arguments and returns the same state."""
     if settings is None:
         settings = Settings()
     problem = problem.to(resolve_device(device))
     state = ocp_initial_state(problem, settings, U0=U0, X0=X0, device=problem.device)
-    while int(state.status) == Status.RUNNING and int(state.iteration) < max_iterations:
-        state = ocp_perform_iteration(
-            problem, settings, state, mesh=mesh, tridiag_backend=tridiag_backend
-        )
-    if int(state.status) == Status.RUNNING:
-        state = dataclasses.replace(
-            state,
-            status=torch.tensor(int(Status.ABORT_ITER), dtype=torch.int32, device=problem.device),
-        )
-    return state
+    return ocp_solve_from(problem, settings, state, max_iterations, mesh, mesh_axis,
+                          tridiag_backend)
+
+
+def batched_ocp_solve(
+    problem: BlockStructuredProblem,
+    settings: Settings,
+    x0_batch: Any,
+    max_iterations: int = 100,
+    tridiag_backend: str = "auto",
+    device: Any = None,
+) -> OCPState:
+    """Scenario batch (BASELINE config 5 on the block-structured path): B
+    independent solves from the rows of ``x0_batch`` (B, nx), each from the
+    rollout of zero controls from its initial state, as ``ocp_solve``
+    from ``ocp_initial_state(x0=...)``.  Returns an ``OCPState`` with the
+    lane dimension first in every tensor.
+
+    The single-lane iteration runs under ``torch.func.vmap``; all lanes
+    advance together, a stopped lane frozen while the others go on, with
+    one host read a loop trip or a branch for all lanes.  The batched
+    inverses of the float32 route take every lane's blocks in one launch
+    (``ops/cyclic_reduction.py``).  ``device=None`` means CUDA."""
+    problem = problem.to(resolve_device(device))
+    x0 = torch.as_tensor(x0_batch, dtype=problem.dtype, device=problem.device)
+    if x0.ndim != 2 or x0.shape[1] != problem.nx:
+        raise ValueError(f"x0_batch must be (B, {problem.nx}), got {tuple(x0.shape)}")
+
+    def one(x):
+        state = ocp_initial_state(problem, settings, x0=x, device=problem.device)
+        return ocp_solve_from(problem, settings, state, max_iterations,
+                              tridiag_backend=tridiag_backend)
+
+    return vmap_lanes(one, x0)

@@ -16,6 +16,15 @@ The two batched-inverse kernels (``csrc/bgj.cu``) sit behind
 beside it, which runs the same arithmetic and is what the wrapper takes
 for a tensor on the CPU.  For a CUDA tensor the wrapper launches the kernel
 or raises.  ``LAUNCHES`` counts kernel launches, and nothing else.
+
+Each wrapper calls a ``torch.library.custom_op`` (``sleqp_tpu_torch::bgj_flat``,
+``sleqp_tpu_torch::bgj_blocked64``) whose CPU implementation is the plain
+version and whose CUDA implementation launches the kernel.  Its
+``register_vmap`` rule folds the lane dimension into the batch of blocks,
+so under ``torch.func.vmap`` (``batched_ocp_solve``) one launch inverts
+the blocks of every lane: ``LAUNCHES`` counts launches, not lanes.  The
+levels of ``cr_factor``/``cr_resolve`` are written with no index write
+into a buffer made inside them, so they run under ``vmap`` as well.
 """
 
 from __future__ import annotations
@@ -34,6 +43,10 @@ BLOCKED_K = 4 * _LEAF  # the only block size the blocked kernel takes
 
 
 def _check_blocks(C: Tensor, name: str) -> None:
+    """Reject what neither implementation of the operator takes: another
+    device than the CPU or CUDA, another shape or dtype."""
+    if C.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {C.device}")
     if C.dim() != 3 or C.shape[1] != C.shape[2]:
         raise ValueError(f"{name}: expected (B, k, k) blocks, got {tuple(C.shape)}")
     if C.dtype != torch.float32:
@@ -41,9 +54,11 @@ def _check_blocks(C: Tensor, name: str) -> None:
 
 
 def _kernel_output(C: Tensor, name: str) -> Tensor:
-    """Validate a batch on the card and allocate the kernel's output."""
+    """Validate a batch on the card, switch TF32 off, and allocate the
+    kernel's output."""
     if not C.is_contiguous():
         raise ValueError(f"{name}: blocks must be contiguous")
+    _build.require_full_fp32()
     return torch.empty_like(C)
 
 
@@ -98,8 +113,17 @@ def bgj_flat(C: Tensor) -> Tensor:
     latency of one chain rather than either bound sets its time.
     """
     _check_blocks(C, "bgj_flat")
-    if not _build.runs_kernel(C, "bgj_flat"):
-        return bgj_flat_plain(C)
+    return _bgj_flat_op(C)
+
+
+@torch.library.custom_op("sleqp_tpu_torch::bgj_flat", mutates_args=(), device_types="cpu")
+def _bgj_flat_op(C: Tensor) -> Tensor:
+    """``bgj_flat`` as an operator; on the CPU the plain version."""
+    return bgj_flat_plain(C)
+
+
+@_bgj_flat_op.register_kernel("cuda")
+def _bgj_flat_cuda(C: Tensor) -> Tensor:
     M = _kernel_output(C, "bgj_flat")
     B, k, _ = C.shape
     if B == 0:
@@ -117,6 +141,20 @@ def bgj_flat(C: Tensor) -> Tensor:
     _build.check_launch(code, "bgj_flat")
     LAUNCHES["bgj_flat"] += 1
     return M
+
+
+def _fold_lanes(op, in_dims, C: Tensor):
+    """The ``register_vmap`` rule of both operators: the lanes of C (B, k, k)
+    join its batch of blocks, one call of ``op`` for all of them."""
+    (dim,) = in_dims
+    if dim is None:
+        return op(C), None
+    C = C.movedim(dim, 0)
+    lanes, B, k, _ = C.shape
+    return op(C.reshape(lanes * B, k, k).contiguous()).reshape(lanes, B, k, k), 0
+
+
+_bgj_flat_op.register_vmap(lambda info, in_dims, C: _fold_lanes(_bgj_flat_op, in_dims, C))
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +213,17 @@ def bgj_blocked64(C: Tensor) -> Tensor:
     of the card's float32 rate.
     """
     _check_blocks(C, "bgj_blocked64")
-    if not _build.runs_kernel(C, "bgj_blocked64"):
-        return bgj_blocked64_plain(C)
+    return _bgj_blocked64_op(C)
+
+
+@torch.library.custom_op("sleqp_tpu_torch::bgj_blocked64", mutates_args=(), device_types="cpu")
+def _bgj_blocked64_op(C: Tensor) -> Tensor:
+    """``bgj_blocked64`` as an operator; on the CPU the plain version."""
+    return bgj_blocked64_plain(C)
+
+
+@_bgj_blocked64_op.register_kernel("cuda")
+def _bgj_blocked64_cuda(C: Tensor) -> Tensor:
     M = _kernel_output(C, "bgj_blocked64")
     B, k, _ = C.shape
     if k != BLOCKED_K:
@@ -191,6 +238,10 @@ def bgj_blocked64(C: Tensor) -> Tensor:
     _build.check_launch(code, "bgj_blocked64")
     LAUNCHES["bgj_blocked64"] += 1
     return M
+
+
+_bgj_blocked64_op.register_vmap(
+    lambda info, in_dims, C: _fold_lanes(_bgj_blocked64_op, in_dims, C))
 
 
 def batched_gj_inverse(C: Tensor) -> Tensor:
@@ -319,7 +370,6 @@ def cr_resolve(fact: dict, b: Tensor) -> Tensor:
     zero_kk = torch.zeros((1, k, k), dtype=torch.float32, device=dev)
     zero = torch.zeros((1, k, r), dtype=torch.float32, device=dev)
     for lv, b_ev in zip(reversed(fact["levels"]), reversed(stack)):
-        n = lv["n"]
         x_l = torch.cat([zero, x], dim=0)  # x_{e-1} per even
         x_r = torch.cat([x, zero], dim=0)  # x_{e+1} per even
         # L into even e: L[e-1] = L_right[p-1] (front-pad), L[e] = L_left[p]
@@ -334,10 +384,9 @@ def cr_resolve(fact: dict, b: Tensor) -> Tensor:
         x_ev = torch.einsum("pij,pjr->pir", lv["M_ev"], rhs_e)
         # interleave evens and odds back into level ordering, dropping the
         # identity-padding row so the size matches the parent level
-        xn = torch.empty((n, k, r), dtype=torch.float32, device=dev)
-        xn[0::2] = x_ev
-        xn[1::2] = x
-        x = xn[: lv["n_in"]]
+        m_o = x.shape[0]
+        xn = torch.stack([x_ev[:m_o], x], dim=1).reshape(2 * m_o, k, r)
+        x = torch.cat([xn, x_ev[m_o:]], dim=0)[: lv["n_in"]]
 
     x = x[: b.shape[0]]
     return x[..., 0] if squeeze else x

@@ -18,23 +18,28 @@ The batched route is the dense iteration with exact Hessians, the Cauchy
 LP by vertex enumeration (or the box step when there are no constraints),
 and the GLTR or CG Newton step, on both ``compute_dtype`` routes.  Every
 other route raises ``NotImplementedError`` naming its ROADMAP.md item.
+
+``sharded_solve`` splits a batch over the ranks of a mesh axis
+(``parallel/ranks.py``): each rank solves its shard as above, and one
+``psum`` counts the OPTIMAL lanes of all ranks (``parallel/collectives.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any
 
 import torch
 
 from ..cauchy import resolved_lp_solver
 from ..device import resolve_device
 from ..dyn import DynFunc
-from ..lanes import tree_leaves, tree_map, tree_unflatten, tree_where
+from ..lanes import tree_leaves, tree_map, tree_unflatten, tree_where, vmap_lanes
 from ..problem import LSQFunc, Problem
 from ..problem_solver import SolverState, initial_state, perform_iteration, solve_from
 from ..settings import Settings
 from ..types import HessEval, LPSolver, ParametricCauchy, Status, TRSolver
+from .collectives import all_gather_rows, axis_group, psum
 
 Tensor = torch.Tensor
 
@@ -46,22 +51,6 @@ MIN_RADIUS = 1e-4  # phase 2 of batched_solve_mp never inherits a smaller radius
 
 
 # ---- states with a lane dimension ------------------------------------------
-
-
-def vmap_lanes(fn: Callable[..., Any], *trees: Any) -> Any:
-    """``torch.func.vmap(fn)`` over states: every tensor of ``trees`` has
-    the lane dimension first, and so has every tensor of the result."""
-    flat = [tree_leaves(t) for t in trees]
-    out_like = []
-
-    def inner(*leaves):
-        it = iter(leaves)
-        out = fn(*(tree_unflatten(t, it) for t in trees))
-        out_like.append(out)
-        return tuple(tree_leaves(out))
-
-    outs = torch.func.vmap(inner)(*(t for leaves in flat for t in leaves))
-    return tree_unflatten(out_like[0], iter(outs))
 
 
 def lane(tree: Any, index: Any) -> Any:
@@ -291,6 +280,39 @@ def multistart_solve(problem: Problem, settings: Settings, x0: Any, num_starts: 
     return multistart_from(problem, settings, starts, max_iterations, device=problem.device)
 
 
-def sharded_solve(*args: Any, **kwargs: Any) -> SolverState:
-    """The reference's scenario batch across a device mesh: not ported."""
-    raise NotImplementedError(f"sharded_solve and parallel/schur.py: {LANES_ITEM}")
+def sharded_solve(problem: Problem, settings: Settings, x0_batch: Any, mesh,
+                  axis_name: str = "batch", max_iterations: int = 1000,
+                  restoration: bool = False, device: Any = None):
+    """Scenario-batched solve across the ranks of ``mesh``'s axis
+    ``axis_name`` (the reference's ``shard_map`` over a device mesh; BASELINE
+    config 5).  Every rank passes the whole (B, n) batch, B divisible by the
+    number of ranks; rank p solves lanes [p B/P, (p+1) B/P) by
+    ``batched_solve`` on ``device`` (``None`` means CUDA).  Returns this
+    rank's solved states and the number of OPTIMAL lanes over all ranks, a
+    0-d int32 tensor summed by one ``psum``; ``gather_shards`` joins the
+    states."""
+    problem = problem.to(resolve_device(device))
+    if restoration and problem.num_cons > 0:
+        raise NotImplementedError(f"batched restoration lanes: {LANES_ITEM}")
+    x0 = _lanes_x0(problem, x0_batch)
+    group, size, rank = axis_group(mesh, axis_name)
+    batch = x0.shape[0]
+    if batch % size != 0:
+        raise ValueError(f"batch {batch} not divisible by mesh size {size}")
+    per = batch // size
+    out = batched_solve(problem, settings, x0[rank * per:(rank + 1) * per], max_iterations,
+                        device=problem.device)
+    solved_local = (out.status == int(Status.OPTIMAL)).sum(dtype=torch.int32)
+    return out, psum(solved_local, group)
+
+
+def gather_shards(states: Any, mesh, axis_name: str = "batch") -> Any:
+    """The states of every rank's shard (``sharded_solve``), joined along
+    their lanes in rank order, on every rank.  The tensors travel as their
+    bytes, packed into one collective."""
+    group, size, _ = axis_group(mesh, axis_name)
+    leaves = tree_leaves(states)
+    rows = all_gather_rows([t.contiguous().reshape(-1).view(torch.uint8) for t in leaves], group)
+    joined = [r.reshape(-1).clone().view(t.dtype).reshape((size * t.shape[0],) + t.shape[1:])
+              for t, r in zip(leaves, rows)]
+    return tree_unflatten(states, iter(joined))

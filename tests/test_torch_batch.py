@@ -312,8 +312,6 @@ def test_other_routes_raise():
             pb.batched_solve(tp, settings, x0b, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11b"):
         pb.batched_solve(tp, Settings(), x0b, restoration=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        pb.sharded_solve(tp, Settings(), x0b, None)
     _, lsq, _ = torch_dense.rosenbrock_lsq()
     with pytest.raises(NotImplementedError, match="item 11b"):
         pb.batched_solve(lsq, Settings(), np.zeros((2, 2)), device="cpu")

@@ -1,5 +1,6 @@
-"""The port stands alone: sleqp_tpu_torch and chip_smoke.py import nothing
-of JAX or of sleqp_tpu (the GPU machine has no JAX), chip_smoke.py exits
+"""The port stands alone: sleqp_tpu_torch, chip_smoke.py and the ranks'
+program of the sharded tests (tests/torch_dist.py) import nothing of JAX
+or of sleqp_tpu (the GPU machine has no JAX), chip_smoke.py exits
 non-zero without a card or without the repository, and the entry points run
 on CUDA unless asked for the CPU."""
 
@@ -37,13 +38,17 @@ sys.meta_path.insert(0, Block())
 before = set(sys.modules)
 import sleqp_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sleqp_tpu_torch.__path__, "sleqp_tpu_torch.")]
-assert {"sleqp_tpu_torch.parallel", "sleqp_tpu_torch.parallel.batch"} <= set(names), names
+assert {"sleqp_tpu_torch.parallel", "sleqp_tpu_torch.parallel.batch",
+        "sleqp_tpu_torch.parallel.schur", "sleqp_tpu_torch.parallel.collectives",
+        "sleqp_tpu_torch.parallel.ranks"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, "tests")
+import torch_dist  # the ranks' program of the sharded parity tests
 bad = sorted(n for n in set(sys.modules) - before if n.split(".")[0] in BLOCKED)
 assert not bad, bad
-print("imported", len(names) + 2)
+print("imported", len(names) + 3)
 """
 
 
@@ -67,8 +72,9 @@ def test_port_and_chip_smoke_import_no_jax():
     # gauss_newton, problem_solver), the entry point (solver, restoration,
     # polish, scale, preprocessor), dyn, ops.pdlp, the harness (+ hs,
     # medium, driver), lanes, the batched solve (parallel, parallel.batch),
-    # and chip_smoke
-    assert int(proc.stdout.split()[-1]) >= 47, proc.stdout
+    # the sharded paths (parallel.schur, parallel.collectives,
+    # parallel.ranks), chip_smoke and the ranks' program tests/torch_dist.py
+    assert int(proc.stdout.split()[-1]) >= 51, proc.stdout
 
 
 def test_chip_smoke_without_card_prints_no_result():
@@ -97,8 +103,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
         problem_arrays_from_numpy({"x0": np.ones(2)})
     with pytest.raises(RuntimeError, match="CUDA"):
         state_from_numpy({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tx.batched_ocp_solve(problem, Settings(), np.ones((2, 2)))
     # asked for the CPU, the same solve runs
     assert int(ocp_solve(problem, Settings(), device="cpu").iteration) >= 1
+    assert tx.batched_ocp_solve(problem, Settings(), np.ones((2, 2)), device="cpu").U.shape[0] == 2
 
     # the dense SLP-EQP solve
     func = tx.Func(lambda x: (x * x).sum(), 2)

@@ -48,6 +48,21 @@ def _spd_blocks(B, k, seed, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,k", [("bgj_flat", 32), ("bgj_blocked64", 64)])
+def test_vmapped_kernel_launches_once_for_all_lanes(cuda, name, k):
+    """Under torch.func.vmap the operator's rule folds the lanes into the
+    batch of blocks: one launch, each lane's result the kernel's on that
+    lane alone."""
+    wrapper = getattr(cr, name)
+    lanes = torch.stack([_spd_blocks(9, k, seed=b, device=cuda) for b in range(3)])
+    before = cr.LAUNCHES[name]
+    got = torch.func.vmap(wrapper)(lanes)
+    torch.cuda.synchronize()
+    assert cr.LAUNCHES[name] == before + 1
+    assert torch.equal(got, torch.stack([wrapper(lanes[b]) for b in range(3)]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,k", [(781, 32), (9, 32), (13, 3), (1, 4), (5, 17), (4, 33), (3, 77),
                                  (2, 96), (1561, 64), (1, 64)])
 def test_kernel_matches_plain_version(cuda, B, k):

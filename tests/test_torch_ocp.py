@@ -266,12 +266,6 @@ def test_settings_validation():
     assert JaxSettings().linesearch_eta == Settings().linesearch_eta
 
 
-def test_sharded_schur_not_ported():
-    _, tp = make_ocp_pair()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ocp_solve(tp, Settings(), max_iterations=2, mesh=object(), device="cpu")
-
-
 @pytest.mark.parametrize("route,backend", [
     ("same", "pallas"),  # float64 S through block_tridiag_solve_mp (cr32 + 2 refinements)
     ("float32", "spike"),  # float32 S through SPIKE, stage Hessians by Cholesky
