@@ -62,11 +62,11 @@ run from a checkout of the repository, on a machine with a CUDA device and
 10. dynamic functions: ``tests/test_dyn.py``'s Rosenbrock and constrained
     problems through ``Solver`` on the card and the CPU (OPTIMAL, x, the
     error bound tightened);
-11. the suite sweep (``tools/torch_suite.py``) on the card: the 101 rows
-    of the r5 sweep on the float64 route and 87 of its 97 optimal rows on
-    the mixed route (``MIXED_LEFT_OUT`` names the other ten), each through
-    the end gate against
-    ``artifacts/suite_all_{f64,mixed}_r5.csv``;
+11. the suite sweep (``tools/torch_suite.py``) on the card: 87 of the 101
+    rows of the r5 sweep on the float64 route (``FLOAT64_LEFT_OUT`` names
+    the other 14) and 87 of its 97 optimal rows on the mixed route
+    (``MIXED_LEFT_OUT`` names the other ten), each through the end gate
+    against ``artifacts/suite_all_{f64,mixed}_r5.csv``;
 12. the banded structured path (``banded.py``): ``bench.py``'s banded
     problem (n = 10 240) on both routes on the card and on the CPU, held to
     the JAX package's iterations; the suite's three banded rows from phase
@@ -86,6 +86,15 @@ run from a checkout of the repository, on a machine with a CUDA device and
     ``tools/batch_reference.py``); solves per second, instance-iterations
     per second, ms per lockstep trip by phase, host reads and kernels per
     trip; eight lanes against the port's single-lane ``solve`` on the card;
+    then the restoration lanes (``batched_solve(restoration=True)``: the
+    Waechter-Biegler batch of ``tests/test_restoration_batched.py`` and 64
+    seeded starts of it, every lane OPTIMAL at its solution; HS71 at B =
+    1024 from the starts above, bit for bit the plain ``batched_solve``) and
+    the ``LSQFunc`` lanes (Gauss-Newton + LSQR under vmap: broydn100 at B =
+    16, Rosenbrock as least squares), each lane held to the JAX package's
+    lane (``artifacts/frontends_jax_cpu.json``, written by
+    ``tools/frontend_reference.py``) and lanes to the port's single-lane
+    solve on the card; trips, host reads, LSQR trips and ms;
 15. the sharded paths on four ranks sharing the card (gloo, subprocesses
     of this script with a file rendezvous and a deadline; correctness, not
     scaling): ``sharded_schur_solve`` at N = 1559, k = 32 on both interior
@@ -101,12 +110,22 @@ run from a checkout of the repository, on a machine with a CUDA device and
     stop on different trips and backtrack apart), each lane against the
     port's single-lane solve on the card; host reads, merit evaluations
     and bgj_blocked64 launches against the single lanes';
-17. one JSON line describing each kernel, then the result line.
+17. the front ends on the card, each held to the JAX package's result
+    (``artifacts/frontends_jax_cpu.json``): ``minimize`` (HS71 with dict
+    constraints, Rosenbrock as a numpy function through the host path and
+    finite differences, ``LinearConstraint`` and ``NonlinearConstraint``
+    objects), ``solve_nl`` on ``tests/test_ampl.py``'s HS71 ``.nl`` text and
+    its ``.sol`` read back, ``python -m sleqp_tpu_torch --hs hs71 --json``
+    as a subprocess, ``save_state``/``load_state`` after 3 iterations and the
+    resumed solve (bit for bit the uninterrupted one), ``check_derivatives``
+    (HS71 passes, a wrong gradient is caught) and ``profile_iteration`` on
+    HS71 and chainineq200 (ms a component);
+18. one JSON line describing each kernel, then the result line.
 
 Phases 3, 5, 6, 15 and 16 are the main paths of the kernels: the launch
 counts are cleared just before each and read just after (phase 15: in each
-rank, summed), and the kernels line reports their sum.  Phases 7 to 14 are
-read the same way and must launch none of them.
+rank, summed), and the kernels line reports their sum.  Phases 7 to 14 and
+17 are read the same way and must launch none of them.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  Without a CUDA device it exits with code 2 before any phase; outside
@@ -135,6 +154,7 @@ from sleqp_tpu_torch import (  # noqa: E402
     Func,
     HessEval,
     LPSolver,
+    LSQFunc,
     ParametricCauchy,
     Problem,
     Settings,
@@ -143,15 +163,17 @@ from sleqp_tpu_torch import (  # noqa: E402
     Status,
     banded_solve,
     create_iterate,
+    initial_state,
     ocp_initial_state,
     ocp_perform_iteration,
     ocp_solve,
+    perform_iteration,
     solve,
     sparse_solve,
 )
 from sleqp_tpu_torch import banded, cauchy, gauss_newton, problem_solver, sparse  # noqa: E402
 from sleqp_tpu_torch import ocp as ocp_module  # noqa: E402
-from sleqp_tpu_torch.lanes import vmap_lanes  # noqa: E402
+from sleqp_tpu_torch.lanes import tree_leaves, vmap_lanes  # noqa: E402
 from sleqp_tpu_torch.ocp import batched_ocp_solve, ocp_solve_from  # noqa: E402
 from sleqp_tpu_torch.parallel import batch as pb  # noqa: E402
 from sleqp_tpu_torch.parallel import collectives, ranks  # noqa: E402
@@ -161,6 +183,8 @@ from sleqp_tpu_torch.kernels import _build  # noqa: E402
 from sleqp_tpu_torch.ops import cyclic_reduction as cr  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_tridiag as pt  # noqa: E402
+from sleqp_tpu_torch.ops import lsqr as lsqr_module  # noqa: E402
+from sleqp_tpu_torch.restoration import solve_with_restoration  # noqa: E402
 from sleqp_tpu_torch.harness.driver import ALL_PROBLEMS  # noqa: E402
 from sleqp_tpu_torch.harness.driver import get_problem as harness_problem  # noqa: E402
 from sleqp_tpu_torch.ops.block_tridiag import block_tridiag_solve  # noqa: E402
@@ -925,13 +949,24 @@ def dyn_phase(log, card="cuda"):
 
 
 # Phase 11: the suite sweep (tools/torch_suite.py) on the card, held to the
-# r5 CSVs: all 101 rows on the float64 route; on the mixed route the rows
-# whose r5 row is optimal (its four iter_limit rows, 1000 iterations each,
-# run in the CPU sweep only) but for MIXED_LEFT_OUT: the ten rows that took
-# longest in the card's mixed sweep of tools/torch_suite.py in PR 12 (78 of
-# its 118 s), left out to keep the script under 600 s.  They run in the
-# CPU sweep (tests/test_torch_suite_gate.py), and chainineq200, projqp500
-# and extrosnb100 in phases 7 and 8 on both routes.
+# r5 CSVs: on the float64 route every row but FLOAT64_LEFT_OUT; on the
+# mixed route the rows whose r5 row is optimal (its four iter_limit rows,
+# 1000 iterations each, run in the CPU sweep only) but for MIXED_LEFT_OUT:
+# the ten rows that took longest in a mixed sweep of tools/torch_suite.py
+# on the card (78 of its 118 s).  FLOAT64_LEFT_OUT makes room for the
+# restoration and LSQFunc lanes of phase 14 and the front ends of phase 17
+# (together 40 s on the card): the four rows that phases 7 and 8 already
+# solve on the card on both routes (chainineq200, projqp500, boxqp1000,
+# extrosnb100), then the slowest rows of a whole float64 sweep on the card
+# (NVIDIA H100 80GB HBM3, 700.00 W): hs106, a named tie of ROADMAP.md
+# queue C, 54.3 s; dqrtic100 22.2; chainqp200, a card-only tie, 7.8;
+# woodext100 4.3; hs38 4.1; hs72 3.0; hs74, a named tie, 2.1; hs111 2.0;
+# hs64 1.9; hs104 1.8: 111.7 s of that sweep's 162.9.  The banded rows
+# stay: phase 12 holds them.  Every row left out runs in the CPU sweep
+# (tools/torch_suite.py, tests/test_torch_suite_gate.py).
+FLOAT64_LEFT_OUT = ("chainineq200", "projqp500", "boxqp1000", "extrosnb100", "hs106",
+                    "dqrtic100", "chainqp200", "woodext100", "hs38", "hs72", "hs74", "hs111",
+                    "hs64", "hs104")
 MIXED_LEFT_OUT = ("hs49", "dqrtic100", "powellsg100", "chainqp200", "chainineq200",
                   "liarwhd100", "hs38", "projqp500", "extrosnb100", "hs74")
 
@@ -954,8 +989,9 @@ def suite_phase(log, card="cuda", names=None):
     for route in ("float64", "mixed"):
         oracle = tool.read_rows(tool.ORACLES[route])
         rows_of = [n for n in oracle if n in ALL_PROBLEMS and n in (names or ALL_PROBLEMS)
-                   and (route == "float64"
-                        or (oracle[n][3] == "optimal" and n not in MIXED_LEFT_OUT))]
+                   and ((route == "float64" and n not in FLOAT64_LEFT_OUT)
+                        or (route == "mixed" and oracle[n][3] == "optimal"
+                            and n not in MIXED_LEFT_OUT))]
         rows, result, seconds = tool.run(route, card, rows_of, verbose=False)
         log(11, f"suite {route} on the card: {len(rows)} rows in {seconds:.1f} s, "
                 f"{result['iterations']} iterations (r5 {result['iterations_r5']}), "
@@ -964,7 +1000,7 @@ def suite_phase(log, card="cuda", names=None):
                 f"{result['status']}; objective differs {result['objective']}; named ties "
                 f"{result['ties']}; more than "
                 f"{tool.ITER_SLACK} iterations from r5 {result['iterations_far']}")
-        slowest = sorted(rows.values(), key=lambda f: -float(f[9]))[:6]
+        slowest = sorted(rows.values(), key=lambda f: -float(f[9]))[:12]
         log(11, f"suite {route}: slowest rows " + ", ".join(
             f"{f[0]} {float(f[9]):.1f} s ({f[8]} iterations)" for f in slowest))
         check(result["ok"], f"the {route} suite on the card fails the end gate")
@@ -1626,7 +1662,210 @@ def batch_phase(log, card="cuda"):
     log(14, f"lanes {samples} against their single-lane solve on the "
             f"{'card' if card == 'cuda' else 'CPU'}: same status, x within 1e-9"
             + (f" but the certified rounding ties {named}" if named else ""))
+    lanes_phase(log, card, plain_1024=lanes)
     return summary
+
+
+# ---- phase 14, continued: the restoration and LSQFunc lanes ------------------
+# The Waechter-Biegler batch of tests/test_restoration_batched.py (four
+# lanes, the first LOCALLY_INFEASIBLE until its restoration) and the same
+# problem at B = 64 (a quarter of the starts at or near the pathological
+# one); HS71 with restoration=True at B = 1024, bit for bit the plain lanes;
+# the LSQFunc lanes (Gauss-Newton + LSQR under vmap) on broydn100 at B = 16
+# and on Rosenbrock as least squares.  Every lane is held to the JAX
+# package's lane (FRONTENDS_REF, written by tools/frontend_reference.py);
+# the single-lane solves on the card are all lanes of the small batches and
+# LANE_SAMPLES lanes of the larger ones.
+FRONTENDS_REF = "artifacts/frontends_jax_cpu.json"
+WACHBIEG_X0 = (-2.0, 1.0, 1.0)
+LANE_SAMPLES = 8
+LANES_MAX_IT = 200
+ROSEN_LSQ_STARTS = ((0.0, 0.0), (0.9, 0.8), (-1.0, 1.0), (-1.2, 1.0))
+
+
+def wachbieg_starts(batch):
+    """The starts of the Waechter-Biegler lanes: at B = 4 those of
+    tests/test_restoration_batched.py; else from default_rng(batch), a
+    quarter at the pathological start moved by at most 0.05 (the first
+    exactly there), the rest uniform in [-1, 2] x [0, 2] x [0, 2]."""
+    x0 = np.array(WACHBIEG_X0)
+    if batch == 4:
+        return np.stack([x0, [1.0, 0.0, 0.5], [0.8, -0.4, 0.3], x0 + np.array([0.0, 0.0, 1.0])])
+    rng = np.random.default_rng(batch)
+    near = batch // 4
+    starts = rng.uniform([-1.0, 0.0, 0.0], [2.0, 2.0, 2.0], (batch, 3))
+    starts[:near] = np.maximum(x0 + rng.uniform(-0.05, 0.05, (near, 3)), [-np.inf, 0.0, 0.0])
+    starts[0] = x0
+    return starts
+
+
+def broydn_starts(batch=16):
+    """broydn100's x0 (-1) and batch - 1 starts moved by 0.3 N(0, 1), from
+    default_rng(batch)."""
+    x0 = np.full(100, -1.0)
+    rng = np.random.default_rng(batch)
+    return np.concatenate([x0[None, :], x0 + 0.3 * rng.standard_normal((batch - 1, 100))])
+
+
+def rosenbrock_lsq(device):
+    """Rosenbrock as least squares (tests/fixtures.py::rosenbrock_lsq_problem)."""
+    func = LSQFunc(lambda x: torch.stack([1.0 - x[0], 10.0 * (x[1] - x[0] ** 2)]), 2, 2)
+    return Problem(func, device=device)
+
+
+def lane_problem(name, device):
+    if name.startswith("wachbieg"):
+        return solver_problem("wachbieg", device)[0]
+    if name == "rosenbrock_lsq":
+        return rosenbrock_lsq(device)
+    return dense_problem(name, device)[0]
+
+
+def lane_starts(name):
+    if name.startswith("wachbieg"):
+        return wachbieg_starts(int(name[len("wachbieg"):]))
+    return np.array(ROSEN_LSQ_STARTS) if name == "rosenbrock_lsq" else broydn_starts()
+
+
+def load_frontends_ref():
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), FRONTENDS_REF)) as fh:
+        return json.load(fh)
+
+
+class LsqrTrips:
+    """Counts the trips of the LSQR loop (``ops/lsqr.py``'s lockstep: one
+    read of the lanes' stop flags a trip) while active."""
+
+    def __enter__(self):
+        self.count = 0
+        self._inner = lsqr_module.lockstep
+
+        def counted(cond, body, state, **kw):
+            def counted_body(s, trip):
+                self.count += 1
+                return body(s, trip)
+
+            return self._inner(cond, counted_body, state, **kw)
+
+        lsqr_module.lockstep = counted
+        return self
+
+    def __exit__(self, *exc):
+        lsqr_module.lockstep = self._inner
+
+
+def measured_lanes(problem, x0b, restoration, device):
+    """``batched_solve`` of ``x0b`` on ``device``: (state, seconds, lockstep
+    trips, LSQR trips, host reads); reads are counted on the card only."""
+    def run():
+        with Trips() as trips, LsqrTrips() as lsqr:
+            out, seconds = timed(lambda: pb.batched_solve(
+                problem, Settings(), x0b, LANES_MAX_IT, restoration=restoration, device=device),
+                device)
+        return out, seconds, trips.count, lsqr.count
+
+    if device == "cuda":
+        reads, (out, seconds, trips, lsqr) = count_host_reads(run)
+    else:
+        (out, seconds, trips, lsqr), reads = run(), 0
+    return out, seconds, trips, lsqr, reads
+
+
+# x of a lane against JAX's lane: a restored lane stops where the
+# restoration's residual test (obj <= feas_tol^2 / 2) first holds, a
+# threshold that rounding moves by a trip, after which the resumed solve
+# takes 1-3 iterations to the same solution; both stop OPTIMAL within
+# feas_tol = 1e-6 of the Waechter-Biegler solution, so two lanes may part by
+# twice that (on the CPU: 9 of 64 lanes, up to 1.9e-6 and 2 iterations).
+LANE_X_TOL = {"wachbieg4": 1e-8, "wachbieg64": 1e-5, "broydn100": 1e-6, "rosenbrock_lsq": 1e-6}
+
+
+def hold_lanes(key, out, ref, problem, x0b, device, restoration, x_tol):
+    """Each lane against JAX's (status, iterations within 3, x within
+    ``x_tol``) and sampled lanes against the port's single-lane solve on
+    ``device`` (status, iterations within 1, x within 1e-8); returns the
+    largest gaps."""
+    status, iters = out.status.cpu().numpy(), out.iteration.cpu().numpy()
+    x = out.it.x.cpu().numpy()
+    ref_status, ref_iters, ref_x = (np.array(ref[k]) for k in ("status", "iterations", "x"))
+    check(np.array_equal(status, ref_status), f"{key}: statuses {status.tolist()}, JAX "
+                                              f"{ref_status.tolist()}")
+    it_gap = int(np.abs(iters - ref_iters).max())
+    dx_jax = float(np.abs(x - ref_x).max())
+    check(it_gap <= 3 and dx_jax <= x_tol,
+          f"{key}: iterations {it_gap} and x {dx_jax:.3e} from JAX's")
+    B = len(x0b)
+    samples = range(B) if B <= 4 else np.linspace(0, B - 1, LANE_SAMPLES).astype(int).tolist()
+    dx_one, it_one = 0.0, 0
+    for b in samples:
+        state0 = initial_state(problem, Settings(), x0b[b], device=device)
+        if restoration:
+            alone = solve_with_restoration(problem, Settings(), state0, LANES_MAX_IT)
+        else:
+            alone = problem_solver.solve_from(problem, Settings(), state0, LANES_MAX_IT)
+        check(int(alone.status) == int(status[b]),
+              f"{key} lane {b}: status {int(status[b])}, single-lane {int(alone.status)}")
+        it_one = max(it_one, abs(int(alone.iteration) - int(iters[b])))
+        dx_one = max(dx_one, float(np.abs(alone.it.x.cpu().numpy() - x[b]).max()))
+    check(it_one <= 1 and dx_one <= 1e-8,
+          f"{key}: sampled lanes part from their single-lane solves (iterations {it_one}, "
+          f"x {dx_one:.3e})")
+    return dict(it_gap=it_gap, dx_jax=dx_jax, samples=len(samples), it_one=it_one, dx_one=dx_one,
+                parted=int((iters != ref_iters).sum()))
+
+
+def lanes_phase(log, card="cuda", plain_1024=None):
+    """Phase 14, continued (``card="cpu"`` rehearses it): the restoration
+    and LSQFunc lanes; ``plain_1024``: phase 14's plain ``batched_solve`` of
+    HS71 at B = 1024."""
+    ref = load_frontends_ref()
+    for name in ("wachbieg4", "wachbieg64", "broydn100", "rosenbrock_lsq"):
+        problem, x0b = lane_problem(name, card), lane_starts(name)
+        restoration = name.startswith("wachbieg")
+        out, seconds, trips, lsqr, reads = measured_lanes(problem, x0b, restoration, card)
+        gaps = hold_lanes(f"{name} B={len(x0b)}", out, ref["lanes"][name], problem, x0b, card,
+                          restoration, LANE_X_TOL[name])
+        status = out.status.cpu().numpy()
+        line = (f"{name} lanes B={len(x0b)}: {int((status == int(Status.OPTIMAL)).sum())}"
+                f"/{len(status)} OPTIMAL, iterations {int(out.iteration.min())}-"
+                f"{int(out.iteration.max())}; against JAX's lanes: same statuses, iterations "
+                f"within {gaps['it_gap']} ({gaps['parted']} lanes not equal), x within "
+                f"{gaps['dx_jax']:.2e}; {gaps['samples']} "
+                f"lanes against their single-lane solve on the card: iterations within "
+                f"{gaps['it_one']}, x within {gaps['dx_one']:.2e}; {seconds:.3f} s, {trips} "
+                f"lockstep trips, {1e3 * seconds / max(trips, 1):.2f} ms a trip")
+        if restoration:
+            x = out.it.x.cpu().numpy()
+            err = max(float(np.abs(x[:, 0] - x[:, 2] - 0.5).max()),
+                      float(np.abs(x[:, 1] - x[:, 0] ** 2 + 1.0).max()), float(-x[:, 2].min()))
+            check(np.all(status == int(Status.OPTIMAL)) and err <= 1e-6,
+                  f"{name}: a lane is not OPTIMAL at the Waechter-Biegler solution ({err:.3e})")
+            plain, p_seconds, p_trips, _, p_reads = measured_lanes(problem, x0b, False, card)
+            infeasible = int((plain.status == int(Status.INFEASIBLE)).sum())
+            check(infeasible > 0, f"{name}: no lane needed restoration")
+            line += (f"; without restoration {infeasible} lanes end LOCALLY_INFEASIBLE; the "
+                     f"restoration part: {trips - p_trips} trips, {reads - p_reads} host reads, "
+                     f"{1e3 * (seconds - p_seconds):.1f} ms")
+        else:
+            check(lsqr > 0, f"{name}: no LSQR step ran")
+            line += (f"; {lsqr} LSQR trips ({lsqr / max(trips, 1):.1f} a lockstep trip); host "
+                     f"reads {reads} ({reads / max(trips, 1):.1f} a lockstep trip)")
+        log(14, line)
+    # restoration=True on a feasible batch is the plain solve, bit for bit
+    problem, _ = dense_problem("hs71", card)
+    x0b = batch_starts(1024)
+    if plain_1024 is None:
+        plain_1024 = pb.batched_solve(problem, Settings(), x0b, BATCH_MAX_IT, device=card)
+    with Trips() as trips:
+        rest, seconds = timed(lambda: pb.batched_solve(problem, Settings(), x0b, BATCH_MAX_IT,
+                                                       restoration=True, device=card), card)
+    same = [torch.equal(a.nan_to_num(), b.nan_to_num()) and torch.equal(a.isnan(), b.isnan())
+            if a.is_floating_point() else torch.equal(a, b)
+            for a, b in zip(tree_leaves(rest), tree_leaves(plain_1024))]
+    log(14, f"hs71 B=1024 with restoration=True: {sum(same)}/{len(same)} state tensors equal "
+            f"to the plain batched_solve's bit for bit, {trips.count} lockstep trips, "
+            f"{seconds:.3f} s")
+    check(all(same), "hs71 B=1024: restoration=True parts from the plain batched_solve")
 
 
 # ---- phase 15: the sharded paths, four ranks on the one card ------------------
@@ -2026,6 +2265,164 @@ def batched_ocp_phase(log, card="cuda"):
             check(counts["bgj_blocked64"] > 0 or card != "cuda",
                   f"{tag}: bgj_blocked64 was not launched")
     return launches
+
+
+# ---- phase 17: the front ends ------------------------------------------------
+# minimize (torch-traceable HS71 with dict constraints; Rosenbrock as a
+# numpy function through the host path and finite differences;
+# LinearConstraint and NonlinearConstraint objects), solve_nl on the HS71
+# .nl text of tests/test_ampl.py, the command line as a subprocess,
+# save_state / load_state and the resumed solve, check_derivatives, and
+# profile_iteration, each on the card and held to the JAX package
+# (FRONTENDS_REF) where it has a result.
+
+
+def np_rosenbrock(x):
+    """Rosenbrock (b = 10) in numpy: minimize's host path."""
+    x = np.asarray(x)
+    return float((1.0 - x[0]) ** 2 + 10.0 * (x[1] - x[0] ** 2) ** 2)
+
+
+def minimize_cases():
+    """name -> (fun, x0, keyword arguments) of phase 17's minimize calls;
+    tools/frontend_reference.py makes the same calls with jax.numpy."""
+    from scipy.optimize import LinearConstraint, NonlinearConstraint
+
+    def hs71(x):
+        return x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2]
+
+    return {
+        "hs71_dict": (hs71, np.array([1.0, 5.0, 5.0, 1.0]), dict(
+            bounds=[(1, 5)] * 4,
+            constraints=[{"type": "ineq", "fun": lambda x: x[0] * x[1] * x[2] * x[3] - 25.0},
+                         {"type": "eq", "fun": lambda x: x @ x - 40.0}])),
+        "rosenbrock_numpy": (np_rosenbrock, np.zeros(2), {}),
+        "linear_constraint": (lambda x: -x[0] - 2.0 * x[1], np.zeros(2), dict(
+            bounds=[(0, None), (0, None)],
+            constraints=LinearConstraint(np.array([[1.0, 1.0]]), -np.inf, 1.0))),
+        "nonlinear_constraint": (lambda x: x[0] ** 2 + x[1] ** 2, np.array([2.0, 0.0]), dict(
+            constraints=NonlinearConstraint(lambda x: x[0] + x[1], 1.0, np.inf))),
+    }
+
+
+def hs71_nl_text():
+    """HS71_NL of tests/test_ampl.py, read as a literal (that module
+    imports the JAX package)."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "test_ampl.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", "") == "HS71_NL":
+            return ast.literal_eval(node.value)
+    raise RuntimeError("tests/test_ampl.py has no HS71_NL")
+
+
+def frontend_phase(log, card="cuda"):
+    """Phase 17 (``card="cpu"`` rehearses it, the CLI then with
+    ``--device cpu``)."""
+    from sleqp_tpu_torch.checkpoint import load_state, save_state
+    from sleqp_tpu_torch.deriv_check import InvalidDerivativeError, check_derivatives
+    from sleqp_tpu_torch.harness.ampl import solve_nl
+    from sleqp_tpu_torch.minimize import minimize
+    from sleqp_tpu_torch.profile import profile_iteration
+
+    ref = load_frontends_ref()
+    # minimize, each case against JAX's OptimizeResult
+    for name, (fun, x0, kw) in minimize_cases().items():
+        res, seconds = timed(lambda: minimize(fun, x0, device=card, **kw), card)
+        want = ref["minimize"][name]
+        dfun, dx = abs(res.fun - want["fun"]), float(np.abs(res.x - np.array(want["x"])).max())
+        log(17, f"minimize {name}: {res.message}, fun {res.fun:.11g} (JAX {want['fun']:.11g}), "
+                f"nit {res.nit} (JAX {want['nit']}), |x - x_JAX| {dx:.2e}, maxcv "
+                f"{res.maxcv:.2e}; {seconds:.3f} s")
+        check(res.status == want["status"] and res.success,
+              f"minimize {name}: status {res.status}, JAX {want['status']}")
+        check(dfun <= 1e-6 and dx <= 1e-6,
+              f"minimize {name}: fun {dfun:.3e}, x {dx:.3e} from JAX's")
+    # solve_nl on the HS71 .nl text, its .sol read back
+    want = ref["solve_nl"]
+    with tempfile.TemporaryDirectory() as tmp:
+        nl = os.path.join(tmp, "hs71.nl")
+        with open(nl, "w") as fh:
+            fh.write(hs71_nl_text())
+        (solver, status, obj), seconds = timed(
+            lambda: solve_nl(nl, max_iterations=100, device=card), card)
+        with open(os.path.join(tmp, "hs71.sol")) as fh:
+            sol = fh.read().splitlines()
+    x_sol = np.array([float(v) for v in sol[-1 - solver.problem.num_variables:-1]])
+    dx = float(np.abs(x_sol - np.array(want["x"])).max())
+    log(17, f"solve_nl hs71.nl: {status.name}, objective {obj:.11g} "
+            f"(JAX {want['objective']:.11g}), "
+            f"{solver.iterations} iterations (JAX {want['iterations']}); .sol '{sol[0]}', "
+            f"'{sol[-1]}', its x within {dx:.2e} of JAX's; {seconds:.3f} s")
+    check(status.name == want["status"] and abs(obj - want["objective"]) <= 1e-6
+          and dx <= 1e-6 and sol[-1] == "objno 0 0",
+          "solve_nl hs71: the result or its .sol parts from JAX's")
+    # the command line, as a user runs it
+    want = ref["cli_hs71"]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    args = [sys.executable, "-m", "sleqp_tpu_torch", "--hs", "hs71", "--json"]
+    args += [] if card == "cuda" else ["--device", card]
+    t = time.perf_counter()
+    proc = subprocess.run(args, capture_output=True, text=True, timeout=300, env=env,
+                          cwd=env["PYTHONPATH"])
+    seconds = time.perf_counter() - t
+    check(proc.returncode == 0, f"the CLI failed: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    dx = float(np.abs(np.array(got["x"]) - np.array(want["x"])).max())
+    log(17, f"python -m sleqp_tpu_torch --hs hs71 --json: {got['status']} on {got['device']}, "
+            f"objective {got['objective']:.11g} (JAX CLI {want['objective']:.11g}), "
+            f"{got['iterations']} iterations (JAX {want['iterations']}), x within {dx:.2e}; "
+            f"solve {got['seconds']:.3f} s, {seconds:.1f} s with the process start")
+    check(got["status"] == want["status"] and got["iterations"] == want["iterations"]
+          and abs(got["objective"] - want["objective"]) <= 1e-8 and dx <= 1e-8
+          and got["device"].startswith(card), "the CLI's JSON parts from the JAX CLI's")
+    # checkpoint after 3 iterations, resumed: the uninterrupted solve bit for bit
+    problem, x0 = dense_problem("hs71", card)
+    full = problem_solver.solve_from(problem, Settings(),
+                                     initial_state(problem, Settings(), x0, device=card), 100)
+    state = initial_state(problem, Settings(), x0, device=card)
+    for _ in range(3):
+        state = perform_iteration(problem, Settings(), state)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_state(state, os.path.join(tmp, "state"))
+        loaded = load_state(state, os.path.join(tmp, "state"))
+    resumed = problem_solver.solve_from(problem, Settings(), loaded, 100)
+    leaves = list(zip(tree_leaves(resumed), tree_leaves(full)))
+    same = sum(torch.equal(a.nan_to_num(), b.nan_to_num()) if a.is_floating_point()
+               else torch.equal(a, b) for a, b in leaves)
+    on_card = all(t.device == full.it.x.device for t in tree_leaves(loaded))
+    log(17, f"save_state after 3 iterations, load_state, resumed: "
+            f"{Status(int(resumed.status)).name} "
+            f"in {int(resumed.iteration)} iterations (JAX {ref['checkpoint']['iterations']}); "
+            f"{same}/{len(leaves)} state tensors equal to the uninterrupted solve's bit for bit; "
+            f"loaded tensors on {full.it.x.device}: {on_card}")
+    check(same == len(leaves) and on_card and int(resumed.status) == Status.OPTIMAL,
+          "the resumed solve parts from the uninterrupted one")
+    # derivative checks: HS71's AD derivatives pass, a wrong gradient fails
+    findings, seconds = timed(lambda: check_derivatives(problem, x0), card)
+    wrong = Problem(Func(lambda x: x @ x, 2, obj_grad=lambda x: 3.0 * x), device=card)
+    try:
+        check_derivatives(wrong, np.array([1.0, 2.0]))
+        caught = ""
+    except InvalidDerivativeError as exc:
+        caught = str(exc).splitlines()[0]
+    log(17, f"check_derivatives hs71: {len(findings)} findings ({seconds:.3f} s); "
+            f"a wrong gradient: "
+            f"'{caught}' (JAX: '{ref['deriv_check']['wrong_gradient'][0]}')")
+    check(findings == [] and caught.split(":")[0] == ref["deriv_check"]["wrong_gradient"][0]
+          .split(":")[0], "check_derivatives")
+    # the iteration's components, ms each
+    for name in ("hs71", "chainineq200"):
+        prob, x = dense_problem(name, card)
+        results = profile_iteration(prob, x, device=card)
+        log(17, f"profile_iteration {name}: " + ", ".join(
+            f"{k} {1e3 * v:.3f} ms" for k, v in results.items()))
+        check(list(results) == ref["profile_keys"][name] and results["full_iteration"] > 0.0,
+              f"profile_iteration {name}: keys {list(results)}")
 
 
 def main():
@@ -2469,7 +2866,15 @@ def main():
     launches_scen = batched_ocp_phase(log)
     log(16, f"launches of B1-B6 in the batched solves: {launches_scen}")
 
-    # -- phase 17: report --------------------------------------------------
+    # -- phase 17: the front ends (no kernel of B1-B6) ------------------------
+    clear_counts()
+    frontend_phase(log)
+    launches_front = read_counts()
+    log(17, f"launches of B1-B6: {launches_front}")
+    check(not any(launches_front.values()),
+          f"the front-end phase launched a kernel of B1-B6: {launches_front}")
+
+    # -- phase 18: report --------------------------------------------------
     kernels = [
         dict(rec, launches=launches[name] + launches_kkt[name] + launches_pal[name]
              + launches_sharded[name] + launches_scen[name])
@@ -2477,7 +2882,7 @@ def main():
     ]
     check(len(kernels) == 6 and all(r["launches"] > 0 for r in kernels),
           f"a kernel was not launched on the main paths: {kernels}")
-    log(17, f"all checks passed on '{card}'")
+    log(18, f"all checks passed on '{card}'")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

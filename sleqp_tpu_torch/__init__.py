@@ -17,9 +17,14 @@ layer (``ops/``) runs the streaming block Thomas
 float64 block Thomas or the float32 scan with refinement) and general
 sparse NLPs matrix-free (``sparse.py``: reverse-mode products and
 conjugate gradients), with the PDLP Cauchy LP on operators that never
-materialize the Jacobian.  The package imports ``torch`` and
-``numpy`` and nothing of JAX or of ``sleqp_tpu``.  Entry points run on
-CUDA unless given ``device="cpu"``.
+materialize the Jacobian.  The front ends are the scipy-style
+``minimize`` (``minimize.py``), the AMPL ``.nl`` reader
+(``harness/ampl.py``), checkpoints of a solver state (``checkpoint.py``),
+the derivative check (``deriv_check.py``), the per-component profile of
+an iteration (``profile.py``) and the command line,
+``python -m sleqp_tpu_torch`` (``__main__.py``).  The package imports
+``torch`` and ``numpy`` and nothing of JAX or of ``sleqp_tpu``.  Entry
+points run on CUDA unless given ``device="cpu"``.
 """
 
 from .banded import BandedProblem, banded_solve
@@ -90,6 +95,7 @@ __all__ = [
     "batched_ocp_solve",
     "create_iterate",
     "initial_state",
+    "minimize",
     "ocp_initial_state",
     "ocp_perform_iteration",
     "ocp_solve",
@@ -99,3 +105,12 @@ __all__ = [
     "solve",
     "sparse_solve",
 ]
+
+
+def __getattr__(name: str):
+    # minimize imports scipy: loaded on first use
+    if name == "minimize":
+        from .minimize import minimize as _minimize
+
+        return _minimize
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

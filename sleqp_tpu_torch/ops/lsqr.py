@@ -6,8 +6,10 @@ Steihaug-like at the trust-region boundary (LSQR iterate norms grow
 monotonically, so the first crossing is final).  Used by the Gauss-Newton
 EQP step (``gauss_newton.py``).
 
-The reference's ``lax.while_loop`` is a Python loop that reads one stop
-flag a step, capped at ``max_iterations`` as there.
+The reference's ``lax.while_loop`` is a ``lanes.lockstep`` loop: one read
+of the stop flags a step, for all lanes under ``torch.func.vmap``
+(``parallel/batch.py``), capped at ``max_iterations`` as there; a lane
+that has stopped keeps its iterate while the others go on.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from ..lanes import lockstep
 
 Tensor = torch.Tensor
 
@@ -37,19 +41,24 @@ def lsqr_tr(
     dtype, dev = b.dtype, b.device
     radius = torch.as_tensor(radius, dtype=dtype, device=dev)
 
-    beta = torch.linalg.norm(b)
-    u = b / _safe(beta)
-    v_raw = adjoint(u)
-    alpha = torch.linalg.norm(v_raw)
-    v = v_raw / _safe(alpha)
-    tol = rel_tol * alpha * beta
+    beta0 = torch.linalg.norm(b)
+    u0 = b / _safe(beta0)
+    v_raw = adjoint(u0)
+    alpha0 = torch.linalg.norm(v_raw)
+    v0 = v_raw / _safe(alpha0)
+    tol = rel_tol * alpha0 * beta0
 
-    d = torch.zeros((n,), dtype=dtype, device=dev)
-    w = v
-    phi_bar, rho_bar = beta, alpha
-    steps = 0
-    done = bool((beta == 0.0) | (alpha == 0.0))
-    while not done and steps < max_iterations:
+    # (u, v, d, w, alpha, beta, phi_bar, rho_bar, steps, done)
+    d0 = torch.zeros((n,), dtype=dtype, device=dev)
+    steps0 = torch.zeros((), dtype=torch.int32, device=dev)
+    state = (u0, v0, d0, v0, alpha0, beta0, beta0, alpha0, steps0,
+             (beta0 == 0.0) | (alpha0 == 0.0))
+
+    def cond(s):
+        return ~s[9] & (s[8] < max_iterations)
+
+    def body(s, trip):
+        u, v, d, w, alpha, beta, phi_bar, rho_bar, steps, _ = s
         # bidiagonalization step
         u = forward(v) - alpha * u
         beta = torch.linalg.norm(u)
@@ -76,6 +85,7 @@ def lsqr_tr(
         d = torch.where(crosses, d_next * (radius / _safe(norm)), d_next)
 
         converged = (phi_bar * alpha * c).abs() <= tol
-        steps += 1
-        done = bool(crosses | converged)
-    return d, torch.tensor(steps, dtype=torch.int32, device=dev)
+        return (u, v, d, w, alpha, beta, phi_bar, rho_bar, steps + 1, crosses | converged)
+
+    final = lockstep(cond, body, state, max_trips=max_iterations)
+    return final[2], final[8]

@@ -16,8 +16,11 @@ under ``vmap`` of ``while_loop``.
 
 The batched route is the dense iteration with exact Hessians, the Cauchy
 LP by vertex enumeration (or the box step when there are no constraints),
-and the GLTR or CG Newton step, on both ``compute_dtype`` routes.  Every
-other route raises ``NotImplementedError`` naming its ROADMAP.md item.
+and the GLTR, CG or Gauss-Newton/LSQR Newton step (an ``LSQFunc``), on
+both ``compute_dtype`` routes; with ``restoration=True`` the lanes that end
+LOCALLY_INFEASIBLE get one restoration attempt
+(``restoration.solve_with_restoration``).  Every other route raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
 ``sharded_solve`` splits a batch over the ranks of a mesh axis
 (``parallel/ranks.py``): each rank solves its shard as above, and one
@@ -35,16 +38,16 @@ from ..cauchy import resolved_lp_solver
 from ..device import resolve_device
 from ..dyn import DynFunc
 from ..lanes import tree_leaves, tree_map, tree_unflatten, tree_where, vmap_lanes
-from ..problem import LSQFunc, Problem
+from ..problem import Problem
 from ..problem_solver import SolverState, initial_state, perform_iteration, solve_from
 from ..settings import Settings
-from ..types import HessEval, LPSolver, ParametricCauchy, Status, TRSolver
+from ..restoration import make_restoration_problem, solve_with_restoration
+from ..types import HessEval, LPSolver, ParametricCauchy, Status
 from .collectives import all_gather_rows, axis_group, psum
 
 Tensor = torch.Tensor
 
 # where the routes this module does not batch stand in ROADMAP.md queue A
-LANES_ITEM = "ROADMAP.md queue A item 11b"
 ROUTES_ITEM = "ROADMAP.md queue A item 11c"
 
 MIN_RADIUS = 1e-4  # phase 2 of batched_solve_mp never inherits a smaller radius
@@ -76,9 +79,6 @@ def check_route(problem: Problem, settings: Settings) -> None:
         raise NotImplementedError(f"batched dynamic functions: {ROUTES_ITEM}")
     if settings.hess_eval != HessEval.EXACT:
         raise NotImplementedError(f"batched quasi-Newton Hessians: {ROUTES_ITEM}")
-    if isinstance(problem.func, LSQFunc) and settings.tr_solver in (TRSolver.AUTO,
-                                                                      TRSolver.LSQR):
-        raise NotImplementedError(f"batched LSQFunc lanes (Gauss-Newton + LSQR): {LANES_ITEM}")
     if m > 0:
         backend = resolved_lp_solver(settings, n, m)
         if backend != LPSolver.ENUM:
@@ -121,19 +121,32 @@ def batched_step(problem: Problem, settings: Settings, states: SolverState,
     return vmap_lanes(lambda s: perform_iteration(problem, settings, s), states)
 
 
+def _lane_solver(problem: Problem, settings: Settings, max_iterations: int,
+                 restoration: bool):
+    """The single-lane solve that ``vmap`` runs on every lane: with
+    ``restoration`` (and constraints), one restoration attempt for a lane
+    that ends LOCALLY_INFEASIBLE."""
+    if restoration and problem.num_cons > 0:
+        rest_problem = make_restoration_problem(problem)
+        return lambda s: solve_with_restoration(problem, settings, s, max_iterations,
+                                                rest_problem)
+    return lambda s: solve_from(problem, settings, s, max_iterations)
+
+
 def batched_solve(problem: Problem, settings: Settings, x0_batch: Any,
                   max_iterations: int = 1000, restoration: bool = False,
                   device: Any = None) -> SolverState:
     """Solve B instances of one problem from the rows of ``x0_batch``.
     Each lane iterates until it stops; all lanes advance together, a
     finished lane frozen while the others go on (the reference's ``vmap``
-    of ``while_loop``).  ``device=None`` means CUDA."""
+    of ``while_loop``).  With ``restoration``, the lanes that end
+    LOCALLY_INFEASIBLE get one restoration attempt and resume; when no
+    lane does, the result equals ``restoration=False`` bit for bit, at the
+    cost of one read.  ``device=None`` means CUDA."""
     problem = problem.to(resolve_device(device))
     check_route(problem, settings)
-    if restoration and problem.num_cons > 0:
-        raise NotImplementedError(f"batched restoration lanes: {LANES_ITEM}")
     states = batched_initial_state(problem, settings, x0_batch, device=problem.device)
-    return vmap_lanes(lambda s: solve_from(problem, settings, s, max_iterations), states)
+    return vmap_lanes(_lane_solver(problem, settings, max_iterations, restoration), states)
 
 
 def mp_settings(settings: Settings, coarse_tol: float = 2e-3) -> Settings:
@@ -290,10 +303,8 @@ def sharded_solve(problem: Problem, settings: Settings, x0_batch: Any, mesh,
     ``batched_solve`` on ``device`` (``None`` means CUDA).  Returns this
     rank's solved states and the number of OPTIMAL lanes over all ranks, a
     0-d int32 tensor summed by one ``psum``; ``gather_shards`` joins the
-    states."""
+    states.  ``restoration`` is ``batched_solve``'s, on each shard."""
     problem = problem.to(resolve_device(device))
-    if restoration and problem.num_cons > 0:
-        raise NotImplementedError(f"batched restoration lanes: {LANES_ITEM}")
     x0 = _lanes_x0(problem, x0_batch)
     group, size, rank = axis_group(mesh, axis_name)
     batch = x0.shape[0]
@@ -301,7 +312,7 @@ def sharded_solve(problem: Problem, settings: Settings, x0_batch: Any, mesh,
         raise ValueError(f"batch {batch} not divisible by mesh size {size}")
     per = batch // size
     out = batched_solve(problem, settings, x0[rank * per:(rank + 1) * per], max_iterations,
-                        device=problem.device)
+                        restoration, device=problem.device)
     solved_local = (out.status == int(Status.OPTIMAL)).sum(dtype=torch.int32)
     return out, psum(solved_local, group)
 

@@ -13,12 +13,11 @@ With ``obj_lower = 0.5 feas_tol^2`` the restoration solve stops (status
 UNBOUNDED) as soon as its residual guarantees a max violation <= feas_tol,
 since |c_i - s_i| bounds the violation when s lies inside the bounds.
 
-``solve_with_restoration`` is the reference's single-instance form; its
-``lax.cond`` on the INFEASIBLE status is a branch on one host read.  The
-batched solve (``parallel/batch.py``) runs without restoration lanes:
-``batched_solve(restoration=True)`` raises ``NotImplementedError`` until
-ROADMAP.md queue A item 11b; on the CPU its tests are
-``tests/test_torch_batch{,_mp}.py``.
+``solve_with_restoration`` is the reference's in-graph form: its
+``lax.cond`` on the INFEASIBLE status is one ``lanes.lanes_any`` read and,
+under ``torch.func.vmap`` (``parallel/batch.py``), lockstep restoration
+and resumed solves in which only the lanes that need them run, selected
+per lane at the end.  Outside ``vmap`` it is a branch on one host read.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ import dataclasses
 import torch
 
 from .iterate import create_iterate, max_violation
+from .lanes import lanes_any, lanes_where
 from .problem import LSQFunc, Problem
 from .problem_solver import initial_state, solve_from
 from .settings import Settings
@@ -83,7 +83,14 @@ def solve_with_restoration(problem: Problem, settings: Settings, state0, max_ite
     function): solve, and when the iteration declares local infeasibility,
     run the restoration solve, carry its x back (keeping duals, working
     set, radii and penalty, solver/phase.c:97-147) and resume if the
-    original is then feasible to 10 feas_tol."""
+    original is then feasible to 10 feas_tol.
+
+    Under ``vmap`` the lanes that did not end INFEASIBLE take no part: they
+    enter the restoration solve with their own final status, so they
+    neither run nor add a trip, and only the lanes that were INFEASIBLE
+    and recovered resume.  Every other lane comes back as the plain solve
+    left it, bit for bit.  When no lane is infeasible the attempt costs
+    one read."""
     if rest_problem is None:
         rest_problem = make_restoration_problem(problem)
     rest_settings = restoration_settings(settings)
@@ -92,20 +99,23 @@ def solve_with_restoration(problem: Problem, settings: Settings, state0, max_ite
     n = problem.num_variables
 
     out = solve_from(problem, settings, state0, max_iterations)
-    if int(out.status) != Status.INFEASIBLE:
+    infeasible = out.status == int(Status.INFEASIBLE)
+    if not lanes_any(infeasible):
         return out
     z0 = restoration_initial_point(problem, out.it.x)
-    rest = solve_from(rest_problem, rest_settings,
-                      initial_state(rest_problem, rest_settings, z0, device=problem.device),
-                      max_restoration_iterations)
+    rs0 = initial_state(rest_problem, rest_settings, z0, device=problem.device)
+    rs0 = dataclasses.replace(rs0, status=lanes_where(infeasible, rs0.status, out.status))
+    rest = solve_from(rest_problem, rest_settings, rs0, max_restoration_iterations)
     x_restored = rest.it.x[:n]
     viol = max_violation(problem.data, problem.cons_val(x_restored))
-    if not bool(viol <= settings.feas_tol * 10.0):
+    recovered = infeasible & (viol <= settings.feas_tol * 10.0)
+    if not lanes_any(recovered):
         return out
     new_it = dataclasses.replace(
         create_iterate(problem, x_restored), cons_dual=out.it.cons_dual,
         vars_dual=out.it.vars_dual, var_states=out.it.var_states,
         cons_states=out.it.cons_states)
-    resumed0 = dataclasses.replace(out, it=new_it, status=torch.full_like(out.status,
-                                                                        int(Status.RUNNING)))
-    return solve_from(problem, settings, resumed0, max_iterations)
+    running = torch.full_like(out.status, int(Status.RUNNING))
+    resumed0 = dataclasses.replace(out, it=new_it,
+                                   status=lanes_where(recovered, running, out.status))
+    return lanes_where(recovered, solve_from(problem, settings, resumed0, max_iterations), out)

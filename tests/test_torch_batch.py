@@ -310,11 +310,6 @@ def test_other_routes_raise():
                      Settings(parametric_cauchy=ParametricCauchy.COARSE)):
         with pytest.raises(NotImplementedError, match="item 11c"):
             pb.batched_solve(tp, settings, x0b, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        pb.batched_solve(tp, Settings(), x0b, restoration=True, device="cpu")
-    _, lsq, _ = torch_dense.rosenbrock_lsq()
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        pb.batched_solve(lsq, Settings(), np.zeros((2, 2)), device="cpu")
     dyn = DynFunc(lambda x, bound, w_f, w_c: ((x * x).sum(), x.new_zeros(0), bound * 0.0), 2)
     with pytest.raises(NotImplementedError, match="item 11c"):
         pb.batched_solve_mp(Problem(dyn, device="cpu"), Settings(), np.ones((2, 2)),

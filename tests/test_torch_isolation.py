@@ -40,7 +40,9 @@ import sleqp_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sleqp_tpu_torch.__path__, "sleqp_tpu_torch.")]
 assert {"sleqp_tpu_torch.parallel", "sleqp_tpu_torch.parallel.batch",
         "sleqp_tpu_torch.parallel.schur", "sleqp_tpu_torch.parallel.collectives",
-        "sleqp_tpu_torch.parallel.ranks"} <= set(names), names
+        "sleqp_tpu_torch.parallel.ranks", "sleqp_tpu_torch.checkpoint",
+        "sleqp_tpu_torch.deriv_check", "sleqp_tpu_torch.profile", "sleqp_tpu_torch.minimize",
+        "sleqp_tpu_torch.harness.ampl", "sleqp_tpu_torch.__main__"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -73,8 +75,10 @@ def test_port_and_chip_smoke_import_no_jax():
     # polish, scale, preprocessor), dyn, ops.pdlp, the harness (+ hs,
     # medium, driver), lanes, the batched solve (parallel, parallel.batch),
     # the sharded paths (parallel.schur, parallel.collectives,
-    # parallel.ranks), chip_smoke and the ranks' program tests/torch_dist.py
-    assert int(proc.stdout.split()[-1]) >= 51, proc.stdout
+    # parallel.ranks), the front ends (checkpoint, deriv_check, profile,
+    # minimize, harness.ampl, __main__), chip_smoke and the ranks' program
+    # tests/torch_dist.py
+    assert int(proc.stdout.split()[-1]) >= 57, proc.stdout
 
 
 def test_chip_smoke_without_card_prints_no_result():

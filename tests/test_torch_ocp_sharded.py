@@ -25,6 +25,10 @@ and ``parallel/batch.py::sharded_solve`` on 4 gloo ranks
   devices (statuses and the solved count equal, x within 1e-12 and the
   same iterations but on the lane named in ``SHARDED_TIES``); the
   ``psum``'d count equals the gathered one.
+* ``sharded_solve(restoration=True)``: the Waechter-Biegler batch of
+  tests/test_restoration_batched.py (one lane a rank, one of them
+  LOCALLY_INFEASIBLE before its restoration) equal bit for bit to the
+  port's ``batched_solve(restoration=True)``, every lane OPTIMAL.
 * ``batched_ocp_solve`` on tests/test_ocp.py::test_ocp_scenario_batch's
   three lanes, both routes: statuses and iterations as the reference's
   lanes, U within 1e-10 (float64) or 1e-6 (mixed); lane 0 equal to the
@@ -85,6 +89,14 @@ def _hs71_batch():
         SHARDED_BATCH)[:, None]
 
 
+def _wachbieg_batch():
+    """tests/test_restoration_batched.py::test_batched_solve_with_restoration's
+    four starts, one a rank."""
+    _, x0, _ = fixtures.wachbieg_problem()
+    x0 = np.asarray(x0)
+    return np.stack([x0, [1.0, 0.0, 0.5], [0.8, -0.4, 0.3], x0 + np.array([0.0, 0.0, 1.0])])
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """One group of four ranks runs every sharded case."""
@@ -93,6 +105,8 @@ def ranks(tmp_path_factory):
              for name, c in OCP_CASES.items()]
     cases.append(dict(kind="sharded_solve", name="hs71", x0_batch=_hs71_batch().tolist(),
                       max_iterations=50))
+    cases.append(dict(kind="sharded_solve", name="wachbieg", problem="wachbieg",
+                      restoration=True, x0_batch=_wachbieg_batch().tolist(), max_iterations=200))
     torch_dist.run_ranks(cases, tmp, world=P)
     return {c["name"]: torch_dist.load(tmp, c["name"], world=P) for c in cases}
 
@@ -277,14 +291,20 @@ def test_vmap_rule_matches_plain_loop(wrapper, plain, k, lane_dim):
     assert torch.equal(nested, want[None].expand(2, -1, -1, -1, -1))
 
 
-def test_sharded_restoration_lanes_not_ported():
-    """``sharded_solve(restoration=True)`` on a constrained problem raises
-    naming ROADMAP.md item 11b, before it touches the mesh."""
-    from sleqp_tpu_torch.parallel.batch import sharded_solve
-
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        sharded_solve(torch_dist.hs71(), Settings(), _hs71_batch(), None, restoration=True,
-                      device="cpu")
+def test_sharded_restoration_lanes(ranks):
+    """Every rank's shard and the gathered batch equal the port's
+    ``batched_solve(restoration=True)`` bit for bit; the pathological
+    start recovers, so every lane ends OPTIMAL at the solution set."""
+    results = ranks["wachbieg"]
+    for r, res in enumerate(results):
+        np.testing.assert_array_equal(res["shard_x"], res["x"][r:r + 1])
+        np.testing.assert_array_equal(res["x"], res["batched_x"])
+        np.testing.assert_array_equal(res["status"], res["batched_status"])
+        np.testing.assert_array_equal(res["iteration"], res["batched_iteration"])
+        assert int(res["solved"]) == P
+    x = results[0]["x"]
+    np.testing.assert_allclose(x[:, 0], x[:, 2] + 0.5, atol=1e-6)
+    np.testing.assert_allclose(x[:, 1], x[:, 0] ** 2 - 1.0, atol=1e-6)
 
 
 def test_dataclass_of_batched_state_has_lanes_first():

@@ -120,6 +120,23 @@ def hs71():
                    device="cpu")
 
 
+def wachbieg():
+    """The Waechter-Biegler problem (tests/fixtures.py::wachbieg_problem),
+    on which a start goes LOCALLY_INFEASIBLE and needs restoration."""
+
+    def obj(x):
+        return x[0]
+
+    def cons(x):
+        return torch.stack([x[0] ** 2 - x[1] - 1.0, x[0] - x[2] - 0.5])
+
+    return Problem(Func(obj, 3, cons=cons, num_cons=2), var_lb=np.array([-np.inf, 0.0, 0.0]),
+                   var_ub=np.inf, general_lb=0.0, general_ub=0.0, device="cpu")
+
+
+PROBLEMS = {"hs71": hs71, "wachbieg": wachbieg}
+
+
 # ---- cases -----------------------------------------------------------------
 
 
@@ -171,13 +188,14 @@ def ocp_case(case, meshes):
 
 
 def sharded_solve_case(case, meshes):
-    problem, settings = hs71(), Settings()
+    problem, settings = PROBLEMS[case.get("problem", "hs71")](), Settings()
     x0b = np.asarray(case["x0_batch"])
-    mesh = meshes["batch"]
+    mesh, restoration = meshes["batch"], case.get("restoration", False)
     out, solved = sharded_solve(problem, settings, x0b, mesh, max_iterations=case["max_iterations"],
-                                device="cpu")
+                                restoration=restoration, device="cpu")
     whole = gather_shards(out, mesh)
-    ref = batched_solve(problem, settings, x0b, case["max_iterations"], device="cpu")
+    ref = batched_solve(problem, settings, x0b, case["max_iterations"], restoration=restoration,
+                        device="cpu")
     return dict(shard_x=out.it.x.numpy(), x=whole.it.x.numpy(), status=whole.status.numpy(),
                 iteration=whole.iteration.numpy(), solved=int(solved),
                 batched_x=ref.it.x.numpy(), batched_status=ref.status.numpy(),
