@@ -94,7 +94,18 @@ run from a checkout of the repository, on a machine with a CUDA device and
     16, Rosenbrock as least squares), each lane held to the JAX package's
     lane (``artifacts/frontends_jax_cpu.json``, written by
     ``tools/frontend_reference.py``) and lanes to the port's single-lane
-    solve on the card; trips, host reads, LSQR trips and ms;
+    solve on the card; trips, host reads, LSQR trips and ms; then the
+    SIMPLEX and PDLP Cauchy LPs in lanes (``LP_RUNS``): hs118 at B = 1024
+    through ``batched_solve`` on both compute dtypes and
+    ``batched_solve_mp``, hs35 on PDLP at B = 64, on the card (two runs
+    counting host reads, which warm up, then two timed), each lane held to
+    the JAX package's lane
+    (``artifacts/batch_lp_jax_cpu.json``, written by
+    ``tools/batch_lp_reference.py``) and eight lanes to the port's
+    single-lane solve; solves per second, instance-iterations per second,
+    lockstep trips, simplex or PDHG-block trips a loop, the port's host
+    reads at B = 64 and at the same starts x16 (equal), the card's
+    synchronizations, kernels and idle share of one traced trip;
 15. the sharded paths on four ranks sharing the card (gloo, subprocesses
     of this script with a file rendezvous and a deadline; correctness, not
     scaling): ``sharded_schur_solve`` at N = 1559, k = 32 on both interior
@@ -172,6 +183,7 @@ from sleqp_tpu_torch import (  # noqa: E402
     sparse_solve,
 )
 from sleqp_tpu_torch import banded, cauchy, gauss_newton, problem_solver, sparse  # noqa: E402
+from sleqp_tpu_torch import lanes as lanes_module  # noqa: E402
 from sleqp_tpu_torch import ocp as ocp_module  # noqa: E402
 from sleqp_tpu_torch.lanes import tree_leaves, vmap_lanes  # noqa: E402
 from sleqp_tpu_torch.ocp import batched_ocp_solve, ocp_solve_from  # noqa: E402
@@ -184,6 +196,8 @@ from sleqp_tpu_torch.ops import cyclic_reduction as cr  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_tridiag as pt  # noqa: E402
 from sleqp_tpu_torch.ops import lsqr as lsqr_module  # noqa: E402
+from sleqp_tpu_torch.ops import pdlp as pdlp_module  # noqa: E402
+from sleqp_tpu_torch.ops import simplex as simplex_module  # noqa: E402
 from sleqp_tpu_torch.restoration import solve_with_restoration  # noqa: E402
 from sleqp_tpu_torch.harness.driver import ALL_PROBLEMS  # noqa: E402
 from sleqp_tpu_torch.harness.driver import get_problem as harness_problem  # noqa: E402
@@ -805,22 +819,48 @@ def highs_objective(problem, it, radius, penalty):
     return float(res.fun)
 
 
-def count_bool_reads(fn):
-    """(reads of a 0-d tensor's truth value while ``fn()`` runs on the CPU,
-    its result): the flags PDLP reads, one a block of PDHG iterations."""
-    reads = []
-    real = torch.Tensor.__bool__
+READ_METHODS = ("__bool__", "item", "tolist", "__int__", "__float__")
 
-    def counted(self):
-        reads.append(1)
-        return real(self)
 
-    torch.Tensor.__bool__ = counted
+def count_bool_reads(fn, methods=("__bool__",)):
+    """(reads of tensors' values by Python while ``fn()`` runs, as a
+    Counter by the code that made them; its result).  ``methods`` are the
+    Tensor methods counted: truth values by default (the flags PDLP reads,
+    one a block of PDHG iterations), READ_METHODS for every read on any
+    device: the port's own reads, without the synchronizations a library
+    makes inside a call.  A read in ``lanes.py`` (a flag: one a loop trip
+    or branch for all lanes) is keyed by the function outside it that ran
+    the loop or branch and that function's caller ("lanes
+    simplex.py:_run<solve_dual"), any other read by its file and
+    function."""
+    real = {name: getattr(torch.Tensor, name) for name in methods}
+    reads = collections.Counter()
+    lanes_file = os.path.abspath(lanes_module.__file__)
+
+    def site(frame):
+        code = frame.f_code
+        if os.path.abspath(code.co_filename) != lanes_file:
+            return f"{os.path.basename(code.co_filename)}:{code.co_name}"
+        while os.path.abspath(frame.f_code.co_filename) == lanes_file:
+            frame = frame.f_back
+        code = frame.f_code
+        return (f"lanes {os.path.basename(code.co_filename)}:{code.co_name}"
+                f"<{frame.f_back.f_code.co_name}")
+
+    def counted(method):
+        def read(self, *args, **kwargs):
+            reads[site(sys._getframe(1))] += 1
+            return method(self, *args, **kwargs)
+        return read
+
+    for name, method in real.items():
+        setattr(torch.Tensor, name, counted(method))
     try:
         out = fn()
     finally:
-        torch.Tensor.__bool__ = real
-    return len(reads), out
+        for name, method in real.items():
+            setattr(torch.Tensor, name, method)
+    return reads, out
 
 
 def synchronize(device):
@@ -854,7 +894,7 @@ def pdlp_phase(log, card="cuda"):
         synchronize(dev)
         times.append((time.perf_counter() - t, res))
     reads_card, _ = count_host_reads(lambda: run(0))
-    reads_cpu, _ = count_bool_reads(lambda: run(1))
+    reads_cpu = count_bool_reads(lambda: run(1))[0].total()
     (gpu_s, out), (cpu_s, ref) = times
     iters, cpu_iters = int(out.lp_iterations), int(ref.lp_iterations)
     f_highs = highs_objective(*lps[1])
@@ -1086,7 +1126,7 @@ def measured_solve(run, device, module, kkt_name):
     synchronize(device)
     seconds = time.perf_counter() - t
     if torch.device(device).type != "cuda":
-        reads, _ = count_bool_reads(run)
+        reads = count_bool_reads(run)[0].total()
         return out, seconds, reads, None
     reads, _ = count_host_reads(run)
     with timed_calls(module, kkt_name, device) as kkt:
@@ -1565,6 +1605,30 @@ def tie_mismatches(problem, settings, states, lanes):
     return bad
 
 
+def traced_trip(problem, settings, x0b, card):
+    """The first lockstep trip of a batch from ``x0b`` (its ``batched_step``
+    from the initial states, after one untraced to warm up) under
+    torch.profiler: (kernels, wall ms, device busy ms)."""
+    states = pb.batched_initial_state(problem, settings, x0b, device=card)
+    pb.batched_step(problem, settings, states, device=card)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pb.batched_step(problem, settings, states, device=card)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.time_range.end > e.time_range.start]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, -float("inf")
+    for s, e in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return len(kernels), wall, busy / 1e3
+
+
 def batch_phase(log, card="cuda"):
     """Phase 14 (``card="cpu"`` rehearses it)."""
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), BATCH_REF)) as fh:
@@ -1609,6 +1673,7 @@ def batch_phase(log, card="cuda"):
                     f"{1e3 * best / max(sum(trips), 1):.2f} ms per lockstep trip ({per_phase})")
     # reads per lockstep trip on both, kernels per trip on the card, at B = 1024
     reads, got = count_bool_reads(lambda: batch_run("mp", 1024, "cpu"))
+    reads = reads.total()
     log(14, f"mp B=1024 on the CPU: flag reads {reads} over {sum(got['trips'])} trips "
             f"({reads / sum(got['trips']):.2f} per trip)")
     if card == "cuda":
@@ -1621,25 +1686,8 @@ def batch_phase(log, card="cuda"):
         for label, prob, settings, x in (
                 ("phase 1", p32, s32, torch.as_tensor(batch_starts(1024), dtype=torch.float32)),
                 ("phase 2", problem, Settings(compute_dtype="float32"), batch_starts(1024))):
-            states = pb.batched_initial_state(prob, settings, x, device=card)
-            pb.batched_step(prob, settings, states, device=card)
-            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                pb.batched_step(prob, settings, states, device=card)
-                torch.cuda.synchronize()
-                wall = 1e3 * (time.perf_counter() - t)
-            kernels = [e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.time_range.end > e.time_range.start]
-            spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-            busy, end = 0.0, -float("inf")
-            for s, e in spans:
-                busy += max(0.0, e - max(s, end))
-                end = max(end, e)
-            busy /= 1e3
-            line += (f"; {label} first trip traced: {len(kernels)} kernels, wall {wall:.2f} ms, "
+            kernels, wall, busy = traced_trip(prob, settings, x, card)
+            line += (f"; {label} first trip traced: {kernels} kernels, wall {wall:.2f} ms, "
                      f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}")
         log(14, line)
     # sampled lanes against the port's own single-lane solve on the card
@@ -1663,7 +1711,309 @@ def batch_phase(log, card="cuda"):
             f"{'card' if card == 'cuda' else 'CPU'}: same status, x within 1e-9"
             + (f" but the certified rounding ties {named}" if named else ""))
     lanes_phase(log, card, plain_1024=lanes)
+    lp_lanes_phase(log, card)
     return summary
+
+
+# ---- phase 14, continued: the SIMPLEX and PDLP Cauchy LPs in lanes -------------
+# hs118 (AUTO resolves its Cauchy LP to the simplex: n = 15, m = 17, 66
+# columns) on three routes, and hs35 with lp_solver=PDLP; every lane held to
+# the JAX package's lane (BATCH_LP_REF, written by
+# tools/batch_lp_reference.py) and sampled lanes to the port's single-lane
+# solve on the card.
+BATCH_LP_REF = "artifacts/batch_lp_jax_cpu.json"
+LP_SPREAD = 0.3
+LP_MAX_IT = 200
+# name: (problem, batch, settings keywords, batched_solve_mp?)
+LP_RUNS = {
+    "hs118": ("hs118", 1024, {}, False),
+    "hs118_f32": ("hs118", 1024, {"compute_dtype": "float32"}, False),
+    "hs118_mp": ("hs118", 1024, {}, True),
+    "hs35_pdlp": ("hs35", 64, {"lp_solver": "PDLP", "pdlp_tol": 1e-10}, False),
+}
+
+
+def lp_starts(name, batch):
+    """The starts of an LP lane run: the problem's x0 and x0 +
+    U(-LP_SPREAD, LP_SPREAD) per coordinate from default_rng(k) (k the
+    number in the name: 118 for hs118), clipped to the variable box, lane 0
+    at x0.  The first rows do not depend on ``batch``."""
+    problem, x0, _ = harness_problem(name, "cpu")
+    x0 = np.asarray(x0.cpu(), dtype=np.float64)
+    rng = np.random.default_rng(int(name[2:]))
+    starts = x0[None, :] + rng.uniform(-LP_SPREAD, LP_SPREAD, (batch, len(x0)))
+    starts = np.clip(starts, problem.data.var_lb.cpu().numpy(), problem.data.var_ub.cpu().numpy())
+    starts[0] = x0
+    return starts
+
+
+def lp_settings(key):
+    """The port's Settings of LP_RUNS[key]."""
+    kw = dict(LP_RUNS[key][2])
+    if "lp_solver" in kw:
+        kw["lp_solver"] = LPSolver[kw["lp_solver"]]
+    return Settings(**kw)
+
+
+class LpTrips:
+    """Counts the LP loops of the simplex (its primal and dual passes) and
+    of PDLP (its blocks of PDHG iterations), and their lockstep trips,
+    while active."""
+
+    MODULES = (simplex_module, pdlp_module)
+
+    def __enter__(self):
+        self.loops = self.trips = 0
+        self._inner = [module.lockstep for module in self.MODULES]
+        for module, inner in zip(self.MODULES, self._inner):
+            module.lockstep = self._counted(inner)
+        return self
+
+    def _counted(self, inner):
+        def counted(cond, body, state, **kw):
+            self.loops += 1
+
+            def counted_body(s, trip):
+                self.trips += 1
+                return body(s, trip)
+
+            return inner(cond, counted_body, state, **kw)
+
+        return counted
+
+    def __exit__(self, *exc):
+        for module, inner in zip(self.MODULES, self._inner):
+            module.lockstep = inner
+
+
+def lp_run(key, device, starts=None):
+    """One run of LP_RUNS[key] on ``device`` through the entry point a user
+    calls (``batched_solve`` or ``batched_solve_mp``), from ``starts`` (the
+    run's own by default): its state, seconds, lockstep trips of the
+    iteration, and LP loops and their trips."""
+    name, batch, _, mp = LP_RUNS[key]
+    problem = harness_problem(name, device)[0]
+    x0b = lp_starts(name, batch) if starts is None else starts
+    entry = pb.batched_solve_mp if mp else pb.batched_solve
+    phase1, real_phase1 = [], pb.mp_phase1
+
+    def recorded(*args, **kwargs):
+        st32 = real_phase1(*args, **kwargs)
+        phase1.append(st32.iteration)
+        return st32
+
+    pb.mp_phase1 = recorded
+    try:
+        with Trips() as trips, LpTrips() as lp:
+            out, seconds = timed(lambda: entry(problem, lp_settings(key), x0b, LP_MAX_IT,
+                                               device=device), device)
+    finally:
+        pb.mp_phase1 = real_phase1
+    return dict(out=out, seconds=seconds, trips=trips.count, lp_loops=lp.loops,
+                lp_trips=lp.trips, phase1_iterations=phase1[0].cpu().numpy() if mp else None)
+
+
+# batched_solve_mp's phase 2 starts each lane from its float32 phase-1
+# iterate; where that already passes the float64 optimality test, the lane
+# stops there without a phase-2 iteration and its x is float32 numbers.
+# The two packages' float32 phases part at float32 rounding, and on hs118
+# that flips the test on a few lanes of 1024 (either package stopping at 0
+# or 1 phase-2 iterations; on the CPU 4 lanes, 7e-7 to 2.9e-6 apart in x).
+# A lane with no phase-2 iteration in either package is held to
+# F32_PHASE1_X times float32's eps relative to |x| and to its certified
+# residuals, every other lane to 1e-8.
+F32_PHASE1_X = 4.0
+
+
+def lp_gate(key, got, ref, device):
+    """Hold every lane of a run of LP_RUNS[key] (``got``: ``lp_run``'s
+    result) to JAX's (``ref``: the BATCH_LP_REF JSON): the same status,
+    iterations within 3, x within 1e-8 (a batched_solve_mp lane with no
+    phase-2 iteration in either package: F32_PHASE1_X).  Raises on a
+    failed check; returns a summary."""
+    name, batch, _, mp = LP_RUNS[key]
+    run, out = ref["runs"][key], got["out"]
+    check(np.array_equal(np.asarray(ref["starts"][name])[:batch], lp_starts(name, batch)),
+          f"{key}: the reference's starts are not chip_smoke.lp_starts'")
+    status, iters = out.status.cpu().numpy(), out.iteration.cpu().numpy()
+    x = out.it.x.cpu().numpy()
+    ref_status, ref_iters, ref_x = (np.asarray(run[k]) for k in ("status", "iterations", "x"))
+    bad = np.flatnonzero(status != ref_status)
+    check(bad.size == 0, f"{key} on {device}: lanes {bad.tolist()[:10]} end "
+                         f"{status[bad][:10].tolist()}, JAX {ref_status[bad][:10].tolist()}")
+    it_gap = np.abs(iters - ref_iters)
+    dx = np.abs(x - ref_x).max(axis=1)
+    if mp:
+        kept = ((iters == got["phase1_iterations"])
+                | (ref_iters == np.asarray(run["phase1_iterations"])))
+    else:
+        kept = np.zeros(len(x), bool)
+    x_tol = np.where(kept, F32_PHASE1_X * np.finfo(np.float32).eps
+                     * np.maximum(1.0, np.abs(ref_x).max(axis=1)), 1e-8)
+    far = np.flatnonzero((it_gap > 3) | (dx > x_tol))
+    check(far.size == 0, f"{key} on {device}: lanes {far.tolist()[:10]} take "
+                         f"{iters[far][:10].tolist()} iterations (JAX "
+                         f"{ref_iters[far][:10].tolist()}), x {dx[far][:10].tolist()} from JAX's")
+    parted = np.flatnonzero(dx > 1e-8)
+    if parted.size:
+        feas, stat = (float(getattr(out, k)[torch.as_tensor(parted)].max())
+                      for k in ("feas_res", "stat_res"))
+        check(feas <= 1e-6 and stat <= 1e-6,
+              f"{key} on {device}: lanes on their float32 iterate certify {feas:.2e}, {stat:.2e}")
+    ok = status == int(Status.OPTIMAL)
+    return (f"{int(ok.sum())}/{len(status)} OPTIMAL as JAX's, iterations "
+            f"{int(iters.min())}-{int(iters.max())}, {int((it_gap > 0).sum())} lanes not "
+            f"JAX's count (at most {int(it_gap.max())} apart), x within "
+            f"{float(dx[dx <= 1e-8].max(initial=0.0)):.2e} of JAX's"
+            + (f"; {int(kept.sum())} lanes without a phase-2 iteration in either package, "
+               f"{parted.size} of them apart ({parted.tolist()[:10]}, x up to "
+               f"{float(dx.max()):.2e} apart, residuals certified)" if mp else ""))
+
+
+def single_lane_mp(problem, settings, x0, iterations=LP_MAX_IT):
+    """``batched_solve_mp`` on one start with the single-lane functions:
+    the float32 phase, then the problem's dtype from its iterate, penalty,
+    radii (at least ``pb.MIN_RADIUS``) and basis where it ended OPTIMAL,
+    else from x0 (``pb.mp_phase2``)."""
+    s32 = solve(problem.astype(torch.float32), pb.mp_settings(settings),
+                torch.as_tensor(x0, dtype=torch.float32, device=problem.device),
+                min(20, iterations), device=problem.device)
+    fresh = initial_state(problem, settings, x0, device=problem.device)
+    if int(s32.status) == Status.OPTIMAL:
+        x = problem.clip_to_bounds(s32.it.x.to(problem.dtype))
+        fresh = dataclasses.replace(
+            initial_state(problem, settings, x, device=problem.device),
+            penalty=s32.penalty.to(problem.dtype),
+            trust_radius=torch.clamp(s32.trust_radius.to(problem.dtype), min=pb.MIN_RADIUS),
+            lp_trust_radius=torch.clamp(s32.lp_trust_radius.to(problem.dtype),
+                                        min=pb.MIN_RADIUS),
+            basis=s32.basis)
+    out = problem_solver.solve_from(problem, settings, fresh, min(12, iterations))
+    return dataclasses.replace(out, iteration=out.iteration + s32.iteration)
+
+
+def lp_samples(key, out, device):
+    """BATCH_SAMPLES lanes of a run against the port's single-lane solve on
+    ``device``: the same status and iterations, x within 1e-9, but for a
+    lane that one batched iteration from each of its single-lane states
+    certifies as a rounding tie (``tie_mismatches``; held to the status,
+    iterations within 3 and x within 1e-6).  Returns the tie lanes."""
+    name, batch, _, mp = LP_RUNS[key]
+    problem = harness_problem(name, device)[0]
+    settings = lp_settings(key)
+    x0b = lp_starts(name, batch)
+    ties = []
+    for b in np.linspace(0, batch - 1, BATCH_SAMPLES).astype(int).tolist():
+        if mp:
+            alone = single_lane_mp(problem, settings, x0b[b])
+        else:
+            alone = solve(problem, settings, x0b[b], LP_MAX_IT, device=device)
+        check(int(alone.status) == int(out.status[b]),
+              f"{key} lane {b}: status {int(out.status[b])}, single-lane {int(alone.status)}")
+        dx = float((alone.it.x - out.it.x[b]).abs().max())
+        gap = abs(int(alone.iteration) - int(out.iteration[b]))
+        if gap == 0 and dx <= 1e-9:
+            continue
+        certified = (not mp and gap <= 3 and dx <= 1e-6 and not tie_mismatches(
+            problem, settings, single_lane_states(problem, settings, x0b[b], LP_MAX_IT), 8))
+        check(certified, f"{key} lane {b} parts from its single-lane solve (iterations "
+                         f"{int(out.iteration[b])} against {int(alone.iteration)}, x {dx:.3e}) "
+                         f"and is no rounding tie")
+        ties.append(b)
+    return ties
+
+
+LP_TRACED = "hs118"  # the run whose first lockstep trip is traced
+
+
+# The loops whose flag reads (one a lockstep trip) may differ between a
+# run's first 64 starts and the same starts sixteen times over, by run.
+# With compute_dtype="float32" the trial-step linesearch of
+# perform_iteration took 92 trips at B = 64 and 96 at B = 1024 on the card,
+# every other read equal: the batched products round otherwise at another
+# B (x at 1024 within 1.6e-14 of B = 64's on 51 of 64 starts; on the
+# float64 route 1.3e-14 on 57, no trip apart), which on this route moves a
+# lane's backtracking by a step.
+LOOPS_ROUNDED_BY_B = {
+    "hs118_f32": ("lanes linesearch.py:trial_linesearch<perform_iteration",),
+}
+
+
+def lp_reads(key, card):
+    """The port's reads of a run of LP_RUNS[key] from its first 64 starts
+    and from the same starts sixteen times over (B = 1024), by the code
+    that made them (``count_bool_reads`` with READ_METHODS), and the card's
+    synchronizations: every count must be the same at both sizes, but the
+    flag reads of the loops LOOPS_ROUNDED_BY_B names for the run, which
+    are logged at both sizes.  Returns a summary."""
+    x0b = lp_starts(LP_RUNS[key][0], 64)
+    reads, syncs, trips, seconds, x = {}, {}, {}, {}, {}
+    for copies in (1, 16):
+        def run():
+            return lp_run(key, card, np.tile(x0b, (copies, 1)))
+
+        syncs[copies], (reads[copies], r) = host_read_sites(
+            lambda: count_bool_reads(run, READ_METHODS))
+        trips[copies], seconds[copies] = r["trips"], r["seconds"]
+        x[copies] = r["out"].it.x.reshape(copies, 64, -1)
+    dx = (x[16] - x[1]).abs().amax(dim=(0, 2))
+    apart = {site: (reads[1][site], reads[16][site]) for site in reads[1] | reads[16]
+             if reads[1][site] != reads[16][site]}
+    rounded = LOOPS_ROUNDED_BY_B.get(key, ())
+    check(set(apart) <= set(rounded),
+          f"{key}: the port's reads part between B = 64 and the same starts x16 (B = 1024): "
+          f"{apart}")
+    synced = (syncs[1] - syncs[16]) + (syncs[16] - syncs[1])
+    total = {c: reads[c].total() for c in reads}
+    return (f"the port's host reads {total[1]} at B = 64 and {total[16]} at 1024 (the same 64 "
+            f"starts x16; lockstep trips {trips[1]}, {trips[16]}; {seconds[1]:.3f} s, "
+            f"{seconds[16]:.3f} s with the reads counted), {total[1] / max(trips[1], 1):.1f} a "
+            f"lockstep trip"
+            + "".join(f"; {site}: {reads[1][site]} flag reads (trips) at B = 64, "
+                      f"{reads[16][site]} at 1024" for site in rounded)
+            + f"; x at 1024 within {float(dx.max()):.3e} of B = 64's ({int((dx > 0).sum())} "
+              f"of 64 starts not bit for bit)"
+            + f"; the card's synchronizations {syncs[1].total()} and {syncs[16].total()}"
+            + (f" (sites apart: {dict(synced)})" if synced else ""))
+
+
+def lp_lanes_phase(log, card="cuda"):
+    """Phase 14, continued (``card="cpu"`` rehearses it): the SIMPLEX and
+    PDLP Cauchy LPs in lanes (LP_RUNS).  On the card each run first counts
+    its host reads at B = 64 and 1024 (``lp_reads``; these runs warm up the
+    shapes), then runs twice, timed; the first lockstep trip of LP_TRACED
+    is traced, and BATCH_SAMPLES lanes are held to their single-lane solve.
+    On the CPU one run each."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), BATCH_LP_REF)) as fh:
+        ref = json.load(fh)
+    on_card = card == "cuda"
+    for key, (name, batch, _, mp) in LP_RUNS.items():
+        reads = lp_reads(key, card) if on_card else ""
+        runs = [lp_run(key, card) for _ in range(2 if on_card else 1)]
+        got = runs[-1]
+        report = lp_gate(key, got, ref, card)
+        seconds = [r["seconds"] for r in runs]
+        best = min(seconds)
+        iters = int(got["out"].iteration.sum())
+        line = (f"{key} B={batch} on the {'card' if on_card else 'CPU'}: {report}; "
+                f"{best:.3f} s per batch (runs {', '.join(f'{v:.3f}' for v in seconds)}), "
+                f"{batch / best:.1f} solves/s, {iters / best:.1f} instance-iterations/s; "
+                f"{got['trips']} lockstep trips, {1e3 * best / max(got['trips'], 1):.2f} ms a "
+                f"trip; {got['lp_loops']} {'PDHG-block' if 'pdlp' in key else 'simplex'} loops, "
+                f"{got['lp_trips']} trips ({got['lp_trips'] / max(got['lp_loops'], 1):.1f} a "
+                f"loop)")
+        if on_card:
+            line += "; " + reads
+            if key == LP_TRACED:
+                kernels, wall, busy = traced_trip(harness_problem(name, card)[0],
+                                                  lp_settings(key), lp_starts(name, batch), card)
+                line += (f"; first trip traced: {kernels} kernels, wall {wall:.2f} ms, device "
+                         f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}")
+            ties = lp_samples(key, got["out"], card)
+            line += (f"; {BATCH_SAMPLES} lanes against their single-lane solve on the card: "
+                     f"same status, iterations and x within 1e-9"
+                     + (f" but the certified rounding ties {ties}" if ties else ""))
+        log(14, line)
 
 
 # ---- phase 14, continued: the restoration and LSQFunc lanes ------------------
@@ -2162,7 +2512,7 @@ def batched_ocp_phase(log, card="cuda"):
         if card == "cuda":
             return host_read_sites(fn)
         n, out = count_bool_reads(fn)
-        return collections.Counter(truth_values=n), out
+        return collections.Counter(truth_values=n.total()), out
 
     launches = {n: 0 for n in read_counts()}
     for kind, u_bound, route in SCENARIO_RUNS:

@@ -20,7 +20,9 @@ infeasibility.  Column layout (N = n + 3m):
 Warm starts keep (basis, status) across SQP iterations; a saved basis that
 is primal infeasible under the new data is re-optimized by dual pivots or
 repaired by re-slacking the row block.  Each ``lax.cond`` of the reference
-is a Python branch on one scalar read from the device.
+is one read of whether any lane needs its costly side (``lanes.lanes_any``)
+and a per-lane select, so that the LP runs for one instance or for a batch
+of them under ``torch.func.vmap`` with the same reads.
 
 The first-order backend (``LPSolver.PDLP``, ``ops/pdlp.py``) has no simplex
 basis: its statuses are synthesized from the PDHG solution, the saved
@@ -34,6 +36,7 @@ import dataclasses
 import torch
 
 from .iterate import Iterate
+from .lanes import is_batched, lanes_any, lanes_where
 from .ops import lp_enum, pdlp, simplex
 from .problem import ProblemData
 from .types import INF, INF_THRESHOLD, ActiveState, BaseStat, LPSolver
@@ -155,24 +158,40 @@ def _try_warm_basis(A: Tensor, lb: Tensor, ub: Tensor, objective: Tensor, saved:
     * primal infeasible but structurally valid and nonsingular -> use_dual:
       the caller runs the dual simplex from the saved basis, with the
       returned repaired basis as the fallback;
-    * otherwise -> the crash repair keeping the d-column statuses.
-    """
+    * otherwise -> the crash repair keeping the d-column statuses (the cold
+      one, by the objective's signs, when no basis was saved).
+
+    One lane reads as a plain branch does: whether a basis was saved,
+    whether it passes the structural checks, and whether it is primal
+    feasible (``use_dual`` is then a bool).  In lanes the last read goes:
+    the QR solve of the saved basis is computed and selected per lane (a
+    singular basis gives inf/NaN there, and is not ``sane``), ``use_dual``
+    is a 0-d bool tensor, and the cold repair is built only where a lane
+    may lack a saved basis."""
     if feas_tol is None:
         feas_tol = simplex.default_tols(A.dtype)["feas_tol"]
 
-    def repaired(valid: bool):
-        # cold start: rest each d at the bound its objective coefficient
-        # pushes toward
+    def cold():
+        # rest each d at the bound its objective coefficient pushes toward
         grad_status = torch.where(
             objective[:n] > 0.0, int(BaseStat.LOWER),
             torch.where(objective[:n] < 0.0, int(BaseStat.UPPER),
                         int(BaseStat.ZERO))).to(torch.int8)
-        d_status = saved.status[:n] if valid else grad_status
-        return _crash_from_d_statuses(A, lb, ub, d_status, n, m)
+        return _crash_from_d_statuses(A, lb, ub, grad_status, n, m)
 
-    if not bool(saved.valid):
-        basis, status = repaired(False)
+    if not lanes_any(saved.valid):
+        basis, status = cold()
         return basis, status, False
+
+    def repaired():
+        # the crash repair keeping the saved d statuses; cold on a lane
+        # that saved none (only in lanes: one lane got here with a basis)
+        warm = _crash_from_d_statuses(A, lb, ub, saved.status[:n], n, m)
+        if not is_batched(saved.valid):
+            return warm
+        c = cold()
+        return (torch.where(saved.valid, warm[0], c[0]),
+                torch.where(saved.valid, warm[1], c[1]))
 
     basis, status = saved.basis, saved.status
     bl = basis.long()
@@ -182,19 +201,26 @@ def _try_warm_basis(A: Tensor, lb: Tensor, ub: Tensor, objective: Tensor, saved:
     # LOWER needs a finite lb, UPPER a finite ub
     stat_ok = torch.where(status == BaseStat.LOWER, lb > -INF_THRESHOLD,
                           torch.where(status == BaseStat.UPPER, ub < INF_THRESHOLD, True)).all()
-    primal = sane = False
-    if bool(count_ok & basis_ok & stat_ok):
-        B = A.index_select(1, bl)
-        xN = simplex._nonbasic_value(status, lb, ub)
-        xB = simplex.qr_solve(B, -(A @ xN))
-        lbB, ubB = lb.index_select(0, bl), ub.index_select(0, bl)
-        sane_t = torch.isfinite(xB).all()  # nonsingular basis matrix
-        primal_t = sane_t & ((xB >= lbB - feas_tol) & (xB <= ubB + feas_tol)).all()
-        primal, sane = torch.stack([primal_t, sane_t]).tolist()
-    if primal:
-        return basis, status, False
-    b, s = repaired(True)
-    return b, s, sane if allow_dual else False
+    ok = saved.valid & count_ok & basis_ok & stat_ok
+    if not lanes_any(ok):
+        b, s = repaired()
+        return b, s, False
+
+    B = A.index_select(1, bl)
+    xN = simplex._nonbasic_value(status, lb, ub)
+    xB = simplex.qr_solve(B, -(A @ xN))
+    lbB, ubB = lb.index_select(0, bl), ub.index_select(0, bl)
+    sane = ok & torch.isfinite(xB).all()  # nonsingular basis matrix
+    primal = sane & ((xB >= lbB - feas_tol) & (xB <= ubB + feas_tol)).all()
+    if not is_batched(primal):
+        primal, sane = torch.stack([primal, sane]).tolist()
+        if primal:
+            return basis, status, False
+        b, s = repaired()
+        return b, s, sane if allow_dual else False
+    b, s = repaired()
+    return (torch.where(primal, basis, b), torch.where(primal, status, s),
+            (sane & ~primal) if allow_dual else False)
 
 
 def resolved_lp_solver(settings, n: int, m: int) -> LPSolver:
@@ -280,15 +306,17 @@ def solve_cauchy_lp(
         max_iterations = 20 * (n + 3 * m) + 200
 
     basis1, status1, dual_iters = basis0, status0, zero_iters
-    if dual_warm_start and use_dual:
+    if dual_warm_start and lanes_any(use_dual):
         # dual pivots restore primal feasibility of the saved basis; the
-        # stage is capped so a cold basis in disguise cannot eat the budget
+        # stage is capped so a cold basis in disguise cannot eat the budget.
+        # Only the lanes that use it run it (the others keep basis0 and no
+        # pivot), which gives each lane the reference's result
         dres = simplex.solve_dual(A_c, c_c, lb_c, ub_c, saved_basis.basis, saved_basis.status,
-                                  max_iterations=min(max_iterations, 4 * m + 50))
-        ok = dres.state == simplex.OPTIMAL
+                                  max_iterations=min(max_iterations, 4 * m + 50), first=use_dual)
+        ok = (dres.state == simplex.OPTIMAL) & use_dual
         basis1 = torch.where(ok, dres.basis, basis0)
         status1 = torch.where(ok, dres.status, status0)
-        dual_iters = dres.iterations
+        dual_iters = lanes_where(use_dual, dres.iterations, zero_iters)
 
     res = simplex.solve(A_c, c_c, lb_c, ub_c, basis1, status1, max_iterations=max_iterations)
     if mixed:
@@ -426,9 +454,10 @@ def _maybe_reduced_resolve(it: Iterate, A: Tensor, lb: Tensor, ub: Tensor, c: Te
     needs = feasible & (inactive & tight & (res.duals != 0.0)).any()
 
     d_status_main = res.status[:n]
-    if not bool(needs):
-        return (res.x[:n], d_status_main, w_status, zero_slack_stats, res.duals,
-                res.reduced_costs[:n], _i32(0, A))
+    passthrough = (res.x[:n], d_status_main, w_status, zero_slack_stats, res.duals,
+                   res.reduced_costs[:n], _i32(0, A))
+    if not lanes_any(needs):
+        return passthrough
 
     sdiff = sp_vals - sm_vals
     A_red = torch.cat([A[:, :n], -torch.eye(m, dtype=A.dtype, device=A.device)], dim=1)
@@ -448,15 +477,16 @@ def _maybe_reduced_resolve(it: Iterate, A: Tensor, lb: Tensor, ub: Tensor, c: Te
     status_red = torch.cat([d_status_main, w_status_red])
 
     cd = compute_dtype if compute_dtype is not None else A_red.dtype
+    # only the lanes that need it re-solve; the others pass through
     red = simplex.solve(A_red.to(cd), c_red.to(cd), lb_red.to(cd), ub_red.to(cd), basis_red,
-                        status_red, max_iterations=max_iterations)
+                        status_red, max_iterations=max_iterations, first=needs)
     if cd != A_red.dtype:
         red = simplex.polish_full_precision(A_red, c_red, lb_red, ub_red, red,
-                                            max_iterations=max_iterations)
+                                            max_iterations=max_iterations, first=needs)
     # the reduced working set uses slack values for tightness
     # (get_reduced_working_set, standard_cauchy.c:1086-1128)
-    return (red.x[:n], red.status[:n], red.status[n:], tight, red.duals,
-            red.reduced_costs[:n], red.iterations)
+    return lanes_where(needs, (red.x[:n], red.status[:n], red.status[n:], tight, red.duals,
+                               red.reduced_costs[:n], red.iterations), passthrough)
 
 
 def _equal_bounds(lb: Tensor, ub: Tensor, eps: float) -> Tensor:
@@ -514,3 +544,15 @@ def solve_box_cauchy(data: ProblemData, it: Iterate, trust_radius: Tensor) -> Ca
         lp_state=_i32(simplex.OPTIMAL, it.x),
         lp_iterations=_i32(0, it.x),
     )
+
+
+def dump_cauchy_lp(data: ProblemData, it: Iterate, trust_radius, penalty, path,
+                   feasibility_mode: bool = False) -> None:
+    """Write the current Cauchy LP to ``path`` in CPLEX LP format (the
+    reference's lpi ``write`` debugging op, lpi_types.h:100-118).  A host
+    utility: assembles the same (A, lb, ub, c) the solver would."""
+    radius = torch.as_tensor(trust_radius, dtype=it.x.dtype, device=it.x.device)
+    A, lb, ub = _lp_data(data, it, radius)
+    c = _objective(it, torch.as_tensor(penalty, dtype=it.x.dtype, device=it.x.device),
+                   feasibility_mode)
+    simplex.write_lp(A, lb, ub, c, path)

@@ -36,12 +36,13 @@ def is_batched(t: Any) -> bool:
 
 def lanes_any(flag: Any) -> bool:
     """One host read: whether ``flag`` holds on any lane.  Under ``vmap``
-    the read is of the lanes' underlying tensor, outside it of ``flag``."""
+    the read is of the lanes' underlying tensor, outside it of ``flag``
+    (a 0-d flag is read as it is, without a reduction to launch)."""
     if not isinstance(flag, Tensor):
         return bool(flag)
     while _functorch.is_batchedtensor(flag):
         flag = _functorch.get_unwrapped(flag)
-    return bool(flag.any())
+    return bool(flag if flag.ndim == 0 else flag.any())
 
 
 def tree_leaves(tree: Any) -> list:
@@ -54,13 +55,19 @@ def tree_leaves(tree: Any) -> list:
     return [t for f in dataclasses.fields(tree) for t in tree_leaves(getattr(tree, f.name))]
 
 
+def _same_tuple(like: tuple, values: list) -> tuple:
+    """``values`` as a tuple of ``like``'s type (a NamedTuple keeps its
+    fields)."""
+    return type(like)(*values) if hasattr(like, "_fields") else tuple(values)
+
+
 def tree_unflatten(like: Any, leaves) -> Any:
     """A state shaped as ``like`` with ``leaves`` (an iterator) in its
     tensors' places."""
     if isinstance(like, Tensor):
         return next(leaves)
     if isinstance(like, tuple):
-        return tuple(tree_unflatten(v, leaves) for v in like)
+        return _same_tuple(like, [tree_unflatten(v, leaves) for v in like])
     return type(like)(**{f.name: tree_unflatten(getattr(like, f.name), leaves)
                          for f in dataclasses.fields(like)})
 
@@ -73,11 +80,11 @@ def tree_map(fn: Callable[..., Tensor], tree: Any, *rest: Any) -> Any:
 
 def tree_where(pred: Tensor, a, b):
     """Field-by-field ``torch.where`` over two states of one type
-    (tensors, and tuples, dicts and dataclasses of them)."""
+    (tensors, and tuples, NamedTuples, dicts and dataclasses of them)."""
     if isinstance(a, Tensor):
         return torch.where(pred, a, b)
     if isinstance(a, tuple):
-        return tuple(tree_where(pred, x, y) for x, y in zip(a, b))
+        return _same_tuple(a, [tree_where(pred, x, y) for x, y in zip(a, b)])
     if isinstance(a, dict):
         return {k: tree_where(pred, a[k], b[k]) for k in a}
     return type(a)(**{f.name: tree_where(pred, getattr(a, f.name), getattr(b, f.name))

@@ -20,9 +20,11 @@ simplex basis.
 
 The reference runs one ``lax.while_loop`` whose body checks the restart
 criterion every ``check_every`` iterations.  Here the iterations run in
-blocks of ``check_every`` with no host read inside a block; each check
-decides the restart on the device (``torch.where``) and the host reads one
-flag, ``done``.  The iteration numbering is the reference's: checks fire at
+blocks of ``check_every`` with no host read inside a block, as the trips of
+a ``lanes.lockstep`` loop; each check decides the restart on the device
+(``torch.where``) and the host reads one flag a block, for one LP or for a
+batch of them under ``torch.func.vmap`` (a lane that is done is frozen by a
+select).  The iteration numbering is the reference's: checks fire at
 multiples of ``check_every``, and ``max_iterations`` cuts the last block
 short.  The products ``A @ x`` and ``y @ A`` are plain matrix products in
 the state dtype, never in TF32.
@@ -37,6 +39,7 @@ import torch
 
 from ..iterate import max0
 from ..kernels._build import require_full_fp32
+from ..lanes import lockstep
 from ..types import INF_THRESHOLD, BaseStat
 
 Tensor = torch.Tensor
@@ -175,41 +178,38 @@ def solve(
     Anorm = _norm_estimate(op, d_r, d_c)
     rtol = tol * (1.0 + c.abs().amax())
 
-    x_sum, y_sum = torch.zeros_like(x), torch.zeros_like(y)
-    navg = torch.zeros((), dtype=dtype, device=dev)
-    x_anchor, y_anchor = x, y
-    omega = torch.ones((), dtype=dtype, device=dev)  # primal weight
-    e_last = torch.full((), math.inf, dtype=dtype, device=dev)  # KKT error at the last restart
-    since = torch.zeros((), dtype=torch.int32, device=dev)  # iterations since the last restart
-
     def orig_residuals(xb, yb):
         """KKT residuals in the original space (simplex sign convention)."""
         return _kkt_residuals(op, c, lb, ub, d_c * xb, -(d_r * yb))
 
-    it = 0
-    while it < max_iterations:
-        # one block: up to the next multiple of check_every, no host read
-        block = min(check_every - it % check_every, max_iterations - it)
+    def block(s, trip):
+        """One block of check_every PDHG iterations (fewer where
+        max_iterations cuts the last one) with no host read, then the
+        restart check.  Every active lane has run ``trip`` whole blocks, so
+        the block's length is the same on all of them."""
+        length = min(check_every, max_iterations - trip * check_every)
+        x, y, x_sum, y_sum = s["x"], s["y"], s["x_sum"], s["y_sum"]
+        omega = s["omega"]
         # primal weight omega tracks ||dy||/||dx||: tau = eta/omega,
         # sigma = eta*omega (tau*sigma*||A||^2 < 1 for any omega)
         tau = 0.9 / (omega * Anorm)
         sigma = 0.9 * omega / Anorm
-        for _ in range(block):
+        for _ in range(length):
             x_new = _proj(x - tau * (cb + d_c * op.rmv(d_r * y)), lbb, ubb)
             y = y + sigma * (d_r * op.mv(d_c * (2.0 * x_new - x)))
             x = x_new
             x_sum = x_sum + x
             y_sum = y_sum + y
-        navg = navg + block
-        since = since + block
-        it += block
-        if it % check_every:
-            break  # max_iterations cut the block short
+        out = dict(s, x=x, y=y, x_sum=x_sum, y_sum=y_sum, navg=s["navg"] + length,
+                   since=s["since"] + length, it=s["it"] + length)
+        if length < check_every:
+            return out  # max_iterations cut the block short: no check
 
         # ---- candidate evaluation + adaptive restart ------------------
         # restart to the better of {current, average} when the KKT error
         # decayed enough since the last restart (beta = 0.2) or the
         # period grew too long
+        navg, since = out["navg"], out["since"]
         x_avg = _proj(x_sum / torch.clamp(navg, min=1.0), lbb, ubb)
         y_avg = y_sum / torch.clamp(navg, min=1.0)
         pc, dc_ = orig_residuals(x, y)
@@ -221,11 +221,11 @@ def solve(
         yr = torch.where(take_avg, y_avg, y)
         e_best = torch.minimum(e_avg, e_cur)
         done = torch.where(take_avg, (pa <= rtol) & (da <= rtol), (pc <= rtol) & (dc_ <= rtol))
-        restart = done | (e_best <= 0.2 * e_last) | (since >= 4096)
+        restart = done | (e_best <= 0.2 * s["e_last"]) | (since >= 4096)
 
         if adaptive_weight:
-            dx = torch.linalg.vector_norm(xr - x_anchor)
-            dy = torch.linalg.vector_norm(yr - y_anchor)
+            dx = torch.linalg.vector_norm(xr - s["x_anchor"])
+            dy = torch.linalg.vector_norm(yr - s["y_anchor"])
             valid = (dx > 1e-12) & (dy > 1e-12)
             omega_r = torch.where(valid, torch.exp(0.5 * torch.log(dy / dx) + 0.5 * torch.log(omega)),
                                   omega)
@@ -233,20 +233,37 @@ def solve(
         else:
             omega_r = omega
 
-        x = torch.where(restart, xr, x)
-        y = torch.where(restart, yr, y)
-        x_sum = torch.where(restart, 0.0, x_sum)
-        y_sum = torch.where(restart, 0.0, y_sum)
-        navg = torch.where(restart, 0.0 * navg, navg)
-        x_anchor = torch.where(restart, xr, x_anchor)
-        y_anchor = torch.where(restart, yr, y_anchor)
-        omega = torch.where(restart, omega_r, omega)
-        e_last = torch.where(restart, e_best, e_last)
-        since = torch.where(restart, 0, since).to(torch.int32)
-        if bool(done):
-            break
+        return dict(
+            out,
+            x=torch.where(restart, xr, x),
+            y=torch.where(restart, yr, y),
+            x_sum=torch.where(restart, 0.0, x_sum),
+            y_sum=torch.where(restart, 0.0, y_sum),
+            navg=torch.where(restart, 0.0 * navg, navg),
+            x_anchor=torch.where(restart, xr, s["x_anchor"]),
+            y_anchor=torch.where(restart, yr, s["y_anchor"]),
+            omega=torch.where(restart, omega_r, omega),
+            e_last=torch.where(restart, e_best, s["e_last"]),
+            since=torch.where(restart, 0, since).to(torch.int32),
+            done=done,
+        )
 
-    x, y = d_c * x, d_r * y
+    loop = dict(
+        x=x, y=y, x_sum=torch.zeros_like(x), y_sum=torch.zeros_like(y),
+        navg=torch.zeros((), dtype=dtype, device=dev),
+        x_anchor=x, y_anchor=y,
+        omega=torch.ones((), dtype=dtype, device=dev),  # primal weight
+        e_last=torch.full((), math.inf, dtype=dtype, device=dev),  # KKT error at the last restart
+        since=torch.zeros((), dtype=torch.int32, device=dev),  # iterations since the last restart
+        it=torch.zeros((), dtype=torch.int32, device=dev),
+        done=torch.zeros((), dtype=torch.bool, device=dev),
+    )
+    # the flag is read after each whole block (the cap is part of it), never
+    # after a block that max_iterations cut short: max_trips ends the loop
+    # there
+    loop = lockstep(lambda s: ~s["done"] & (s["it"] < max_iterations), block, loop,
+                    max_trips=max_iterations // check_every + 1, first=True)
+    x, y = d_c * loop["x"], d_r * loop["y"]
     # the simplex dual sign convention: reduced costs r = c - y A with y
     # such that r >= 0 at lower bounds at optimality
     y_out = -y
@@ -268,7 +285,7 @@ def solve(
         status=status,
         obj=torch.dot(c, x),
         state=state,
-        iterations=torch.full((), it, dtype=torch.int32, device=dev),
+        iterations=loop["it"],
         primal_res=pres,
         dual_res=dres,
     )

@@ -13,20 +13,24 @@ rank-1 (eta) updates and refactorized every ``refactor_every`` pivots by
 Householder QR, Devex pricing with a switch to Bland's rule after a stall,
 bound flips for boxed columns, and a bounded dual simplex for warm starts
 whose basis turned primal infeasible.  Each ``lax.while_loop`` of the
-reference is a Python loop here that runs the same body and reads one
-scalar (the loop state) back from the device per pivot; the pivot count
-and the refactorization schedule follow from it on the host.  Indexing by
-a device scalar goes through ``index_select``/``index_put_`` so that no
-other value is read back.  ``argmax``/``argmin`` pick the first index of a
-tie, and NaN as the extreme value, in both packages.
+reference is a ``lanes.lockstep`` loop here that runs the same body and
+reads one flag (is any lane still pivoting?) back from the device per
+pivot, for one LP or for a batch of them under ``torch.func.vmap``; a lane
+that has stopped is frozen by a select.  The pivot count is a tensor per
+lane.  Indexing by a device scalar goes through ``index_select`` and
+``index_put`` so that no other value is read back.  ``argmax``/``argmin``
+pick the first index of a tie, and NaN as the extreme value, in both
+packages.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
+from ..lanes import is_batched, lanes_any, lockstep, tree_where
 from ..types import INF_THRESHOLD, BaseStat
 
 Tensor = torch.Tensor
@@ -76,11 +80,10 @@ def take(x: Tensor, i: Tensor) -> Tensor:
 
 def put(x: Tensor, i: Tensor, v: Tensor) -> Tensor:
     """A copy of x with x[i] = v along the first axis (i a 0-d integer
-    tensor, v a tensor of one entry or one row)."""
-    out = x.clone()
-    v = v.to(x.dtype)
-    out.index_put_((i.reshape(1).long(),), v.reshape((1,) + tuple(x.shape[1:])))
-    return out
+    tensor, v a tensor of one entry or one row); out of place, so that it
+    runs under ``vmap`` whichever of x, i and v carries the lanes."""
+    v = v.to(x.dtype).reshape((1,) + tuple(x.shape[1:]))
+    return x.index_put((i.reshape(1).long(),), v)
 
 
 def col(A: Tensor, j: Tensor) -> Tensor:
@@ -139,6 +142,15 @@ def _condition(A: Tensor, basis: Tensor, B_inv: Tensor) -> Tensor:
     return B.abs().sum(dim=0).amax() * B_inv.abs().sum(dim=0).amax()
 
 
+def _refactor_due(trip: int, refactor_every: int) -> bool:
+    """Whether the pivot of lockstep trip ``trip`` refactorizes.  A test on
+    the host: a body that does not pivot (or flip) ends its lane, so every
+    active lane has made exactly ``trip`` counted bodies before this one,
+    and its count after a pivot, the reference's ``it + 1``, is
+    ``trip + 1``."""
+    return (trip + 1) % refactor_every == 0
+
+
 def solve_dual(
     A: Tensor,
     c: Tensor,
@@ -151,12 +163,15 @@ def solve_dual(
     piv_tol: float | None = None,
     refactor_every: int = 64,
     bland_after: int = 100,
+    first: Any = True,
 ) -> DualStageResult:
     """Bounded-variable dual simplex from a dual-feasible basis.
 
     Runs until primal feasible (state OPTIMAL: dual feasibility is kept, so
     the basis is then optimal), the iteration cap, or a failed dual ratio
-    test (DUAL_STALL; the caller falls back to a crash basis)."""
+    test (DUAL_STALL; the caller falls back to a crash basis).  ``first``
+    gives the lanes that run: the others keep the starting basis, no pivot
+    and ITERATION_LIMIT."""
     m, N = A.shape
     dtype, dev = A.dtype, A.device
     tols = default_tols(dtype)
@@ -172,18 +187,16 @@ def solve_dual(
     neg_inf = torch.full((), -torch.inf, dtype=dtype, device=dev)
     inf = torch.full((), torch.inf, dtype=dtype, device=dev)
     LOWER, UPPER, BASIC = _stats(dev)
-    stall = torch.zeros((), dtype=torch.int32, device=dev)
-    state = torch.full((), -1, dtype=torch.int32, device=dev)
-    it = 0  # pivots so far; a body that does not pivot ends the loop
 
-    while it < max_iterations:
+    def body(s, trip):
+        B_inv, xB, basis, status = s["B_inv"], s["xB"], s["basis"], s["status"]
         lbB, ubB = lb.index_select(0, basis.long()), ub.index_select(0, basis.long())
 
         # ---- leaving-row pricing: largest bound violation --------------
         viol_low = torch.where(_finite(lbB), lbB - xB, neg_inf)
         viol_up = torch.where(_finite(ubB), xB - ubB, neg_inf)
         viol = torch.maximum(viol_low, viol_up)
-        use_bland = stall > bland_after
+        use_bland = s["stall"] > bland_after
         r_most = torch.argmax(viol)
         r_bland = torch.argmin(torch.where(viol > ptol, basis, N + 1))
         row_r = torch.where(use_bland, r_bland, r_most)
@@ -242,26 +255,47 @@ def solve_dual(
         status_next = torch.where(step, status_new, status)
         B_inv_next = torch.where(step, B_inv_new, B_inv)
         xB_next = torch.where(step, xB_new, xB)
-        if (it + 1) % refactor_every == 0:
+        if _refactor_due(trip, refactor_every):
             B_ref, xB_ref = _recompute(A, basis_next, status_next, lb, ub)
             B_inv_next = torch.where(step, B_ref, B_inv_next)
             xB_next = torch.where(step, xB_ref, xB_next)
 
         degenerate = take(red, e).abs() <= piv_tol
-        stall = torch.where(step & degenerate, stall + 1, torch.where(step, 0, stall))
-        state = torch.where(done, OPTIMAL, torch.where(stalled, DUAL_STALL, state)).to(torch.int32)
-        basis, status, B_inv, xB = basis_next, status_next, B_inv_next, xB_next
-        if int(state) >= 0:
-            break
-        it += 1
+        stall = s["stall"]
+        return dict(
+            B_inv=B_inv_next, xB=xB_next, basis=basis_next, status=status_next,
+            stall=torch.where(step & degenerate, stall + 1, torch.where(step, 0, stall)),
+            state=torch.where(done, OPTIMAL,
+                              torch.where(stalled, DUAL_STALL, s["state"])).to(torch.int32),
+            it=s["it"] + step.to(torch.int32))
 
-    state = torch.where(state < 0, ITERATION_LIMIT, state).to(torch.int32)
+    s = _run(body, dict(B_inv=B_inv, xB=xB, basis=basis, status=status,
+                        stall=_i32(0, dev), state=_i32(-1, dev), it=_i32(0, dev)),
+             max_iterations, first)
     return DualStageResult(
-        basis=basis,
-        status=status,
-        state=state,
-        iterations=torch.full((), it, dtype=torch.int32, device=dev),
+        basis=s["basis"],
+        status=s["status"],
+        state=torch.where(s["state"] < 0, ITERATION_LIMIT, s["state"]).to(torch.int32),
+        iterations=s["it"],
     )
+
+
+def _i32(v: int, dev) -> Tensor:
+    return torch.full((), v, dtype=torch.int32, device=dev)
+
+
+def _run(body, state: dict, max_iterations: int, first: Any) -> dict:
+    """The pivoting loop: ``body`` while a lane runs (state < 0) under its
+    pivot cap.  The cap is part of the flag read after each trip, so one
+    LP reads once per body, as a loop that reads its state after each
+    pivot does.  A lane outside ``first`` starts at ITERATION_LIMIT, so no
+    trip runs it."""
+    if max_iterations <= 0:
+        return state
+    if isinstance(first, Tensor):
+        state = dict(state, state=torch.where(first, state["state"], ITERATION_LIMIT))
+    return lockstep(lambda s: (s["state"] < 0) & (s["it"] < max_iterations), body, state,
+                    first=first)
 
 
 def solve(
@@ -276,11 +310,14 @@ def solve(
     piv_tol: float | None = None,
     refactor_every: int = 64,
     bland_after: int = 100,
+    first: Any = True,
 ) -> SimplexResult:
     """Run the primal simplex from a primal-feasible starting basis.
 
     ``basis[i]`` is the column basic in row i; ``status`` must satisfy
     ``status[basis] == BASIC`` and mark every other column LOWER/UPPER/ZERO.
+    ``first`` gives the lanes that run: the others keep the starting
+    basis, no pivot and ITERATION_LIMIT.
     """
     m, N = A.shape
     dtype, dev = A.dtype, A.device
@@ -299,12 +336,9 @@ def solve(
     inf = torch.full((), torch.inf, dtype=dtype, device=dev)
     one = torch.ones((), dtype=dtype, device=dev)
     LOWER, UPPER, BASIC = _stats(dev)
-    gamma = torch.ones((N,), dtype=dtype, device=dev)  # Devex reference weights
-    stall = torch.zeros((), dtype=torch.int32, device=dev)
-    state = torch.full((), -1, dtype=torch.int32, device=dev)
-    it = 0  # a body that ends the loop (optimal/unbounded) does not count
 
-    while it < max_iterations:
+    def body(s, trip):
+        B_inv, xB, basis, status, gamma = s["B_inv"], s["xB"], s["basis"], s["status"], s["gamma"]
         # ---- pricing -------------------------------------------------
         y = c.index_select(0, basis.long()) @ B_inv
         r = c - y @ A
@@ -315,7 +349,7 @@ def solve(
         direction = torch.where(free, -sign(r), direction)
         viol = torch.where(is_basic, 0.0, direction * r)
 
-        use_bland = stall > bland_after
+        use_bland = s["stall"] > bland_after
         improving = viol < -tol
         # Devex: largest viol^2 / gamma; Bland: smallest improving index
         score = torch.where(improving, viol * viol / gamma, -1.0)
@@ -394,7 +428,6 @@ def solve(
         gamma_piv = torch.maximum(gamma, (alphas / alpha_q) ** 2 * gamma_q)
         gamma_piv = put(gamma_piv, leaving, torch.clamp(gamma_q / (alpha_q * alpha_q), min=1.0))
         gamma_piv = put(gamma_piv, q, one)
-        gamma = torch.where(piv, gamma_piv, gamma)
 
         status_next = torch.where(flip, status_flip, torch.where(piv, status_piv, status))
         basis_next = torch.where(piv, basis_piv, basis)
@@ -402,24 +435,30 @@ def solve(
         xB_next = torch.where(flip, xB_moved, torch.where(piv, xB_piv, xB))
 
         # ---- periodic refactorization --------------------------------
-        if (it + 1) % refactor_every == 0:
+        if _refactor_due(trip, refactor_every):
             B_ref, xB_ref = _recompute(A, basis_next, status_next, lb, ub)
             B_inv_next = torch.where(piv, B_ref, B_inv_next)
             xB_next = torch.where(piv, xB_ref, xB_next)
 
+        ends = optimal | unbounded  # a body that ends the loop does not count
         degenerate = t_safe <= degen_tol
-        stall = torch.where(optimal | unbounded, stall,
-                            torch.where(degenerate, stall + 1, 0)).to(torch.int32)
-        state = torch.where(optimal, OPTIMAL, torch.where(unbounded, UNBOUNDED, state)).to(torch.int32)
-        basis, status, B_inv, xB = basis_next, status_next, B_inv_next, xB_next
-        if int(state) >= 0:
-            break
-        it += 1
+        stall = s["stall"]
+        return dict(
+            B_inv=B_inv_next, xB=xB_next, basis=basis_next, status=status_next,
+            gamma=torch.where(piv, gamma_piv, gamma),
+            stall=torch.where(ends, stall, torch.where(degenerate, stall + 1, 0)).to(torch.int32),
+            state=torch.where(optimal, OPTIMAL,
+                              torch.where(unbounded, UNBOUNDED, s["state"])).to(torch.int32),
+            it=s["it"] + (~ends).to(torch.int32))
 
-    x = _nonbasic_value(status, lb, ub).index_put((basis.long(),), xB)
+    s = _run(body, dict(B_inv=B_inv, xB=xB, basis=basis, status=status,
+                        gamma=torch.ones((N,), dtype=dtype, device=dev),  # Devex weights
+                        stall=_i32(0, dev), state=_i32(-1, dev), it=_i32(0, dev)),
+             max_iterations, first)
+    basis, status, B_inv = s["basis"], s["status"], s["B_inv"]
+    x = _nonbasic_value(status, lb, ub).index_put((basis.long(),), s["xB"])
     y = c.index_select(0, basis.long()) @ B_inv
     r = c - y @ A
-    state = torch.where(state < 0, ITERATION_LIMIT, state).to(torch.int32)
     return SimplexResult(
         x=x,
         duals=y,
@@ -427,8 +466,8 @@ def solve(
         status=status,
         basis=basis,
         obj=torch.dot(c, x),
-        state=state,
-        iterations=torch.full((), it, dtype=torch.int32, device=dev),
+        state=torch.where(s["state"] < 0, ITERATION_LIMIT, s["state"]).to(torch.int32),
+        iterations=s["it"],
         condition=_condition(A, basis, B_inv),
     )
 
@@ -460,16 +499,59 @@ def refine_result(A: Tensor, c: Tensor, lb: Tensor, ub: Tensor,
 
 
 def polish_full_precision(A: Tensor, c: Tensor, lb: Tensor, ub: Tensor,
-                          res: SimplexResult, max_iterations: int) -> SimplexResult:
+                          res: SimplexResult, max_iterations: int,
+                          first: Any = True) -> SimplexResult:
     """Finish a low-precision solve in the dtype of ``A``: a dual-simplex
     stage restores exact primal feasibility of the float32 basis, then a
     primal pass repairs decisions that fell inside the float32 tolerances.
     Falls back to :func:`refine_result` when the dual stage cannot restore
-    feasibility."""
-    dres = solve_dual(A, c, lb, ub, res.basis, res.status, max_iterations=max_iterations)
-    if int(dres.state) == OPTIMAL:
-        out = solve(A, c, lb, ub, dres.basis, dres.status, max_iterations=max_iterations)
-    else:
+    feasibility.  One read decides whether any lane (of those ``first``
+    gives) runs the primal pass; the others take the fallback, lane by
+    lane, as the reference's ``lax.cond`` does under ``vmap``."""
+    dres = solve_dual(A, c, lb, ub, res.basis, res.status, max_iterations=max_iterations,
+                      first=first)
+    ok = dres.state == OPTIMAL
+
+    def fallback():
         out = refine_result(A, c, lb, ub, res)
-        out = out._replace(iterations=torch.zeros((), dtype=torch.int32, device=A.device))
+        return out._replace(iterations=torch.zeros_like(out.iterations))
+
+    if lanes_any(ok):
+        out = solve(A, c, lb, ub, dres.basis, dres.status, max_iterations=max_iterations,
+                    first=ok)
+        if is_batched(ok):
+            out = tree_where(ok, out, fallback())
+    else:
+        out = fallback()
     return out._replace(iterations=res.iterations + dres.iterations + out.iterations)
+
+
+def write_lp(A, lb, ub, c, path, name="cauchy_lp") -> None:
+    """Dump the LP ``min c^T x  s.t.  A x = 0, lb <= x <= ub`` in CPLEX LP
+    text format, numbers as ``%.17g`` (the reference's lpi ``write`` op,
+    lpi_types.h:100-118, a backend-native dump for offline debugging).  A
+    host utility: tensors are copied to the host first."""
+    A, lb, ub, c = (v.detach().cpu().numpy() if isinstance(v, Tensor) else np.asarray(v)
+                    for v in (A, lb, ub, c))
+    m, N = A.shape
+
+    def var(j):
+        return f"x{j}"
+
+    lines = [f"\\ {name}: {N} columns, {m} rows", "Minimize", " obj:"]
+    terms = [f" {'+' if cj >= 0 else '-'} {abs(cj):.17g} {var(j)}"
+             for j, cj in enumerate(c) if cj != 0.0]
+    lines[-1] += "".join(terms) if terms else " 0 x0"
+    lines.append("Subject To")
+    for i in range(m):
+        row = "".join(f" {'+' if a >= 0 else '-'} {abs(a):.17g} {var(j)}"
+                      for j, a in enumerate(A[i]) if a != 0.0)
+        lines.append(f" r{i}:{row if row else ' 0 x0'} = 0")
+    lines.append("Bounds")
+    for j in range(N):
+        lo = "-inf" if lb[j] < -INF_THRESHOLD else f"{lb[j]:.17g}"
+        hi = "+inf" if ub[j] > INF_THRESHOLD else f"{ub[j]:.17g}"
+        lines.append(f" {lo} <= {var(j)} <= {hi}")
+    lines.append("End")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")

@@ -15,12 +15,15 @@ A lane that has stopped is frozen by a select while the others go on, as
 under ``vmap`` of ``while_loop``.
 
 The batched route is the dense iteration with exact Hessians, the Cauchy
-LP by vertex enumeration (or the box step when there are no constraints),
-and the GLTR, CG or Gauss-Newton/LSQR Newton step (an ``LSQFunc``), on
-both ``compute_dtype`` routes; with ``restoration=True`` the lanes that end
-LOCALLY_INFEASIBLE get one restoration attempt
-(``restoration.solve_with_restoration``).  Every other route raises
-``NotImplementedError`` naming its ROADMAP.md item.
+LP by every backend (vertex enumeration, the bounded simplex with its dual
+warm start, reduced re-solve and float64 polish, or PDLP; the box step when
+there are no constraints), and the GLTR, CG or Gauss-Newton/LSQR Newton
+step (an ``LSQFunc``), on both ``compute_dtype`` routes; with
+``restoration=True`` the lanes that end LOCALLY_INFEASIBLE get one
+restoration attempt (``restoration.solve_with_restoration``).  The simplex
+reads one flag a pivot and PDLP one a block of PDHG iterations, for all
+lanes.  Quasi-Newton Hessians, dynamic functions and the parametric Cauchy
+sweep raise ``NotImplementedError`` naming their ROADMAP.md item.
 
 ``sharded_solve`` splits a batch over the ranks of a mesh axis
 (``parallel/ranks.py``): each rank solves its shard as above, and one
@@ -34,7 +37,6 @@ from typing import Any
 
 import torch
 
-from ..cauchy import resolved_lp_solver
 from ..device import resolve_device
 from ..dyn import DynFunc
 from ..lanes import tree_leaves, tree_map, tree_unflatten, tree_where, vmap_lanes
@@ -42,7 +44,7 @@ from ..problem import Problem
 from ..problem_solver import SolverState, initial_state, perform_iteration, solve_from
 from ..settings import Settings
 from ..restoration import make_restoration_problem, solve_with_restoration
-from ..types import HessEval, LPSolver, ParametricCauchy, Status
+from ..types import HessEval, ParametricCauchy, Status
 from .collectives import all_gather_rows, axis_group, psum
 
 Tensor = torch.Tensor
@@ -74,20 +76,14 @@ def stack_lanes(trees) -> Any:
 def check_route(problem: Problem, settings: Settings) -> None:
     """Raise ``NotImplementedError`` for a problem or settings whose route
     the batched solve does not run."""
-    n, m = problem.num_variables, problem.num_cons
+    m = problem.num_cons
     if isinstance(problem.func, DynFunc):
         raise NotImplementedError(f"batched dynamic functions: {ROUTES_ITEM}")
     if settings.hess_eval != HessEval.EXACT:
         raise NotImplementedError(f"batched quasi-Newton Hessians: {ROUTES_ITEM}")
-    if m > 0:
-        backend = resolved_lp_solver(settings, n, m)
-        if backend != LPSolver.ENUM:
-            raise NotImplementedError(
-                f"batched {backend.name} Cauchy LP (only vertex enumeration, "
-                f"lp_enum.suitable(n + 3m, m), is batched): {ROUTES_ITEM}")
-        if (settings.parametric_cauchy != ParametricCauchy.DISABLED
-                and settings.use_quadratic_model):
-            raise NotImplementedError(f"batched parametric Cauchy sweep: {ROUTES_ITEM}")
+    if (m > 0 and settings.parametric_cauchy != ParametricCauchy.DISABLED
+            and settings.use_quadratic_model):
+        raise NotImplementedError(f"batched parametric Cauchy sweep: {ROUTES_ITEM}")
 
 
 def _lanes_x0(problem: Problem, x0_batch: Any) -> Tensor:

@@ -298,15 +298,15 @@ def test_krylov_lanes_match_single_lane(solver):
 
 def test_other_routes_raise():
     """Routes the batched solve does not run raise NotImplementedError
-    naming their ROADMAP.md item."""
-    from sleqp_tpu_torch import HessEval, LPSolver, ParametricCauchy
+    naming their ROADMAP.md item (the SIMPLEX and PDLP Cauchy LPs run:
+    tests/test_torch_batch_simplex.py, tests/test_torch_batch_pdlp.py)."""
+    from sleqp_tpu_torch import HessEval, ParametricCauchy
     from sleqp_tpu_torch.dyn import DynFunc
     from sleqp_tpu_torch.problem import Problem
 
     _, tp, _ = torch_dense.hs71()
     x0b, _ = hs71_starts()
-    for settings in (Settings(lp_solver=LPSolver.SIMPLEX), Settings(lp_solver=LPSolver.PDLP),
-                     Settings(hess_eval=HessEval.DAMPED_BFGS),
+    for settings in (Settings(hess_eval=HessEval.DAMPED_BFGS),
                      Settings(parametric_cauchy=ParametricCauchy.COARSE)):
         with pytest.raises(NotImplementedError, match="item 11c"):
             pb.batched_solve(tp, settings, x0b, device="cpu")
