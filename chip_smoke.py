@@ -75,8 +75,10 @@ run from a checkout of the repository, on a machine with a CUDA device and
     iteration, host reads per iteration and ms per KKT solve;
 13. the matrix-free sparse path (``sparse.py``): the scattered problem of
     ``tests/test_sparse.py`` at n = 5e4 on both routes on the card and on
-    the float64 route on the CPU, and HS71 with the PDLP Cauchy step; ms per
-    iteration, host reads per iteration, CG steps and ms per EQP solve;
+    the float64 route on the CPU, and the first three iterations of HS71
+    with the PDLP Cauchy step on the card and the CPU, iterate by iterate
+    (the whole solve runs in tier-1 on the CPU); ms per iteration, host
+    reads per iteration, CG steps and ms per EQP solve;
 14. the batched dense solve (``parallel/batch.py``) at ``bench.py``'s
     width: HS71 from ``bench.py``'s starts through ``batched_solve_mp``
     (``Settings(compute_dtype="float32")``) at B = 512 and 1024 and
@@ -105,7 +107,14 @@ run from a checkout of the repository, on a machine with a CUDA device and
     single-lane solve; solves per second, instance-iterations per second,
     lockstep trips, simplex or PDHG-block trips a loop, the port's host
     reads at B = 64 and at the same starts x16 (equal), the card's
-    synchronizations, kernels and idle share of one traced trip;
+    synchronizations, kernels and idle share of one traced trip; then the
+    last batched routes (``ROUTE_RUNS``, B = 1024 each): HS71 under
+    DAMPED_BFGS and SR1 through ``batched_solve`` and DAMPED_BFGS through
+    ``batched_solve_mp``, the parametric Cauchy sweep (COARSE on hs118,
+    FINE on HS71) and phase 10's two dynamic problems, each lane held to
+    the JAX package's lane (``artifacts/batch_routes_jax_cpu.json``,
+    written by ``tools/batch_routes_reference.py``) and eight lanes to the
+    port's single-lane solve; the same measures;
 15. the sharded paths on four ranks sharing the card (gloo, subprocesses
     of this script with a file rendezvous and a deadline; correctness, not
     scaling): ``sharded_schur_solve`` at N = 1559, k = 32 on both interior
@@ -182,6 +191,7 @@ from sleqp_tpu_torch import (  # noqa: E402
     solve,
     sparse_solve,
 )
+from sleqp_tpu_torch.sparse import sparse_initial_state, sparse_perform_iteration  # noqa: E402
 from sleqp_tpu_torch import banded, cauchy, gauss_newton, problem_solver, sparse  # noqa: E402
 from sleqp_tpu_torch import lanes as lanes_module  # noqa: E402
 from sleqp_tpu_torch import ocp as ocp_module  # noqa: E402
@@ -195,6 +205,7 @@ from sleqp_tpu_torch.kernels import _build  # noqa: E402
 from sleqp_tpu_torch.ops import cyclic_reduction as cr  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_chol_tridiag as pc  # noqa: E402
 from sleqp_tpu_torch.ops import pallas_tridiag as pt  # noqa: E402
+from sleqp_tpu_torch.ops import kkt as kkt_ops  # noqa: E402
 from sleqp_tpu_torch.ops import lsqr as lsqr_module  # noqa: E402
 from sleqp_tpu_torch.ops import pdlp as pdlp_module  # noqa: E402
 from sleqp_tpu_torch.ops import simplex as simplex_module  # noqa: E402
@@ -1217,8 +1228,8 @@ def banded_phase(log, card="cuda", swept=None):
 # Phase 13: the matrix-free sparse path (sparse.py).
 # tests/test_sparse.py::_scattered_problem at n = 5e4 (m = 5000, seed 3)
 # on both routes on the card, and once on the CPU on the float64 route;
-# HS71 with cauchy="pdlp" (tests/test_sparse.py:32) on the card.
-HS71_X_OPT = np.array([1.0, 4.742999, 3.821151, 1.379408])  # tests/fixtures.py
+# HS71 with cauchy="pdlp" (tests/test_sparse.py:32), its first iterations
+# on the card and the CPU.
 
 
 def scattered_problem(n, device, seed=3):
@@ -1239,6 +1250,10 @@ def hs71_sparse(device):
                          cons=lambda x: torch.stack([x[0] * x[1] * x[2] * x[3], x @ x]),
                          num_cons=2, var_lb=1.0, var_ub=5.0, cons_lb=[25.0, 40.0],
                          cons_ub=[float("inf"), 40.0], cauchy="pdlp", device=device)
+
+
+SPARSE_PDLP_ITERATIONS = 3  # phase 13's HS71 on PDLP, held iterate by iterate to the CPU
+SPARSE_PDLP_TOL = 1e-12
 
 
 def sparse_phase(log, card="cuda"):
@@ -1279,22 +1294,39 @@ def sparse_phase(log, card="cuda"):
                   "sparse scattered float64: the CPU solve differs from the card's")
             check(dx <= 1e-6, f"sparse scattered float64: x differs from the CPU's by {dx:.3e}")
 
-    hs71 = hs71_sparse(card)
+    sparse_pdlp_phase(log, card)
+
+
+def sparse_pdlp_phase(log, card="cuda"):
+    """Phase 13, continued: HS71 on the matrix-free PDLP Cauchy step, its
+    first SPARSE_PDLP_ITERATIONS iterations on ``card`` and on the CPU, each
+    iterate's state held to the CPU's.  The whole solve (~36 000 PDHG
+    iterations, 75-85 s of the card's time) left the script
+    for the batched routes' runs; it runs whole in tier-1 on the CPU
+    (tests/test_torch_sparse.py, "hs71_pdlp")."""
+    hs71, hs71_cpu = hs71_sparse(card), hs71_sparse("cpu")
     x0 = np.array([1.0, 5.0, 5.0, 1.0])
-    synchronize(card)
-    t = time.perf_counter()
-    reads, out = count_host_reads(lambda: sparse_solve(hs71, Settings(), x0=x0,
-                                                       max_iterations=100))
-    synchronize(card)
-    seconds = time.perf_counter() - t
-    iters = int(out.iteration)
-    dx = float(np.abs(out.x.cpu().numpy() - HS71_X_OPT).max())
-    log(13, f"sparse HS71 (cauchy='pdlp'): {solve_summary(out)}; CG steps "
-            f"{int(out.cg_iterations)}; card {seconds:.3f} s with the reads counted, "
-            f"{1e3 * seconds / max(iters, 1):.2f} ms per iteration, host reads {reads} "
-            f"({reads / max(iters, 1):.1f} per iteration); max |x - x_opt| {dx:.3e}")
-    check(int(out.status) == Status.OPTIMAL, "sparse HS71: not OPTIMAL")
-    check(dx <= 1e-5, f"sparse HS71: x is {dx:.3e} from x_opt")
+    out, ref = sparse_initial_state(hs71, Settings(), x0), sparse_initial_state(hs71_cpu,
+                                                                              Settings(), x0)
+    gaps, seconds, reads = [], 0.0, 0
+    for _ in range(SPARSE_PDLP_ITERATIONS):
+        synchronize(card)
+        t = time.perf_counter()
+        n_reads, out = count_host_reads(lambda: sparse_perform_iteration(hs71, Settings(), out))
+        synchronize(card)
+        seconds += time.perf_counter() - t
+        reads += n_reads
+        ref = sparse_perform_iteration(hs71_cpu, Settings(), ref)
+        gap = field_mismatches(flat_fields(to_cpu(out)), flat_fields(ref), SPARSE_PDLP_TOL)
+        gaps.append(float((out.x.cpu() - ref.x).abs().max()))
+        check(not gap, f"sparse HS71 (cauchy='pdlp') iteration {len(gaps)}: the card's state "
+                       f"parts from the CPU's by more than {SPARSE_PDLP_TOL}: {gap}")
+    log(13, f"sparse HS71 (cauchy='pdlp'), its first {SPARSE_PDLP_ITERATIONS} iterations: "
+            f"{solve_summary(out)}; card {seconds:.3f} s with the reads counted, "
+            f"{1e3 * seconds / SPARSE_PDLP_ITERATIONS:.2f} ms per iteration, host reads {reads} "
+            f"({reads / SPARSE_PDLP_ITERATIONS:.1f} per iteration); each iterate's state within "
+            f"{SPARSE_PDLP_TOL} of the CPU's (x {', '.join(f'{g:.2e}' for g in gaps)})")
+
 
 # Phase 14: the batched dense solve (parallel/batch.py) at bench.py's width:
 # HS71 from bench.py's starts (default_rng(0), jitter +-0.05, clipped to
@@ -1605,6 +1637,84 @@ def tie_mismatches(problem, settings, states, lanes):
     return bad
 
 
+# A batched lane that parts from a single-lane trajectory where
+# tie_mismatches cannot see it: the decision that parts is taken on a
+# quantity at rounding level, so one batched iteration from the single
+# lane's state already parts.  certified_tie walks the trajectory to the
+# first state where one batched iteration parts from the next state and
+# asks why (parting_kind): the projected gradient P g of the EQP step is
+# rounding noise (the working set pins every direction; GLTR follows the
+# noise), or the batched and single-lane Newton steps agree to their last
+# bits and a later test (a linesearch against a bound that the step's last
+# bit decides) takes the other side.
+NOISE = 1e-13  # ||P g|| / ||g|| at which the EQP step follows rounding noise
+ULP_STEP = 1e-14  # batched and single-lane Newton steps apart by rounding
+
+
+class NewtonSteps:
+    """Records, while active, each EQP step of ``perform_iteration``: the
+    ratio ||P g|| / ||g|| of its projected gradient and its direction (of
+    the middle lane under ``vmap``)."""
+
+    def __enter__(self):
+        self.steps = []
+        self._inner = problem_solver.compute_newton_step
+
+        def recorded(data, it, aug_jac, ws, hess_prod, penalty, *args, **kwargs):
+            out = self._inner(data, it, aug_jac, ws, hess_prod, penalty, *args, **kwargs)
+            g = it.obj_grad + hess_prod(ws.step) + penalty * (it.cons_jac.T @ ws.violated_mult)
+            ratio = torch.linalg.norm(kkt_ops.project_nullspace(aug_jac, g)) / torch.linalg.norm(g)
+            self.steps.append((_middle_lane(ratio), _middle_lane(out.direction.primal)))
+            return out
+
+        problem_solver.compute_newton_step = recorded
+        return self
+
+    def __exit__(self, *exc):
+        problem_solver.compute_newton_step = self._inner
+
+
+def _middle_lane(t):
+    while torch._C._functorch.is_batchedtensor(t):
+        bdim = torch._C._functorch.maybe_get_bdim(t)
+        t = torch._C._functorch.get_unwrapped(t)
+        t = t.select(bdim, t.shape[bdim] // 2)
+    return t.detach().clone()
+
+
+def parting_kind(problem, settings, state, lanes):
+    """Why one batched iteration (``lanes`` copies of ``state``) and the
+    single-lane iteration from ``state`` may part: "noise", "ulp", or
+    None when neither holds."""
+    with NewtonSteps() as single:
+        problem_solver.perform_iteration(problem, settings, state)
+    with NewtonSteps() as batched:
+        copies = pb.tree_map(lambda a: a[None].expand(lanes, *a.shape).clone(), state)
+        pb.batched_step(problem, settings, copies, device=problem.device)
+    if not single.steps or not batched.steps:
+        return None
+    (ratio_s, step_s), (ratio_b, step_b) = single.steps[0], batched.steps[0]
+    if max(float(ratio_s), float(ratio_b)) <= NOISE:
+        return "noise"
+    scale = max(1.0, float(step_s.abs().max()))
+    if float((step_s - step_b).abs().max()) <= ULP_STEP * scale:
+        return "ulp"
+    return None
+
+
+def certified_tie(problem, settings, states, lanes):
+    """Whether the batched lane parts from the trajectory ``states`` (port
+    states) at a rounding decision: one batched iteration from each state
+    gives the next until the first parting, and that parting is one of
+    ``parting_kind``'s."""
+    for k, (before, after) in enumerate(zip(states[:-1], states[1:])):
+        batch = pb.tree_map(lambda a: a[None].expand(lanes, *a.shape).clone(), before)
+        got = pb.lane(pb.batched_step(problem, settings, batch, device=problem.device), lanes // 2)
+        if step_mismatches(flat_fields(got), flat_fields(after)):
+            return parting_kind(problem, settings, before, lanes) is not None
+    return True
+
+
 def traced_trip(problem, settings, x0b, card):
     """The first lockstep trip of a batch from ``x0b`` (its ``batched_step``
     from the initial states, after one untraced to warm up) under
@@ -1712,6 +1822,7 @@ def batch_phase(log, card="cuda"):
             + (f" but the certified rounding ties {named}" if named else ""))
     lanes_phase(log, card, plain_1024=lanes)
     lp_lanes_phase(log, card)
+    routes_lanes_phase(log, card)
     return summary
 
 
@@ -1872,12 +1983,18 @@ def lp_gate(key, got, ref, device):
 
 def single_lane_mp(problem, settings, x0, iterations=LP_MAX_IT):
     """``batched_solve_mp`` on one start with the single-lane functions:
-    the float32 phase, then the problem's dtype from its iterate, penalty,
-    radii (at least ``pb.MIN_RADIUS``) and basis where it ended OPTIMAL,
-    else from x0 (``pb.mp_phase2``)."""
+    the float32 phase, then ``single_lane_phase2``."""
     s32 = solve(problem.astype(torch.float32), pb.mp_settings(settings),
                 torch.as_tensor(x0, dtype=torch.float32, device=problem.device),
                 min(20, iterations), device=problem.device)
+    return single_lane_phase2(problem, settings, s32, x0, min(12, iterations))
+
+
+def single_lane_phase2(problem, settings, s32, x0, iterations):
+    """``batched_solve_mp``'s phase 2 on one lane from its phase-1 state
+    ``s32`` (``pb.mp_phase2``): the problem's dtype from its iterate,
+    penalty, radii (at least ``pb.MIN_RADIUS``) and basis where it ended
+    OPTIMAL, else from x0."""
     fresh = initial_state(problem, settings, x0, device=problem.device)
     if int(s32.status) == Status.OPTIMAL:
         x = problem.clip_to_bounds(s32.it.x.to(problem.dtype))
@@ -1888,7 +2005,7 @@ def single_lane_mp(problem, settings, x0, iterations=LP_MAX_IT):
             lp_trust_radius=torch.clamp(s32.lp_trust_radius.to(problem.dtype),
                                         min=pb.MIN_RADIUS),
             basis=s32.basis)
-    out = problem_solver.solve_from(problem, settings, fresh, min(12, iterations))
+    out = problem_solver.solve_from(problem, settings, fresh, iterations)
     return dataclasses.replace(out, iteration=out.iteration + s32.iteration)
 
 
@@ -1934,26 +2051,46 @@ LP_TRACED = "hs118"  # the run whose first lockstep trip is traced
 # B (x at 1024 within 1.6e-14 of B = 64's on 51 of 64 starts; on the
 # float64 route 1.3e-14 on 57, no trip apart), which on this route moves a
 # lane's backtracking by a step.
+# batched_solve_mp's float32 phase 1 on HS71 with DAMPED_BFGS is chaotic
+# (its model reductions fall to the float32 rounding of the merit, see
+# BATCH_REF's note): on the CPU B = 64 and its copies x16 are bit for bit
+# equal, but on the card the float32 sums round otherwise at another B, and
+# one run read the penalty update's branch 31 times at B = 64
+# and 30 at 1024, the Cauchy linesearch 288 and 294 trips.  Any flag of the
+# iteration may move so, so every loop and branch of the iteration is
+# named; the other reads must be equal.
+MP_FLAG_SITES = tuple(f"lanes {site}" for site in (
+    "gltr.py:gltr<compute_newton_step", "linesearch.py:cauchy_linesearch<perform_iteration",
+    "linesearch.py:trial_linesearch<perform_iteration", "penalty.py:update_penalty<perform_iteration",
+    "problem_solver.py:perform_iteration<counted", "problem_solver.py:solve_from<<lambda>",
+    "problem_solver.py:solve_from<warm_one"))
 LOOPS_ROUNDED_BY_B = {
     "hs118_f32": ("lanes linesearch.py:trial_linesearch<perform_iteration",),
+    "hs71_dbfgs_mp": MP_FLAG_SITES,
 }
 
 
 def lp_reads(key, card):
-    """The port's reads of a run of LP_RUNS[key] from its first 64 starts
-    and from the same starts sixteen times over (B = 1024), by the code
-    that made them (``count_bool_reads`` with READ_METHODS), and the card's
+    """The port's reads of a run of LP_RUNS[key] at B = 64 and 1024
+    (``reads_by_size``)."""
+    return reads_by_size(key, lambda starts: lp_run(key, card, starts),
+                         lp_starts(LP_RUNS[key][0], 64))
+
+
+def reads_by_size(key, run, x0b):
+    """The port's reads of ``run(starts)`` from the 64 starts ``x0b`` and
+    from the same starts sixteen times over (B = 1024), by the code that
+    made them (``count_bool_reads`` with READ_METHODS), and the card's
     synchronizations: every count must be the same at both sizes, but the
     flag reads of the loops LOOPS_ROUNDED_BY_B names for the run, which
     are logged at both sizes.  Returns a summary."""
-    x0b = lp_starts(LP_RUNS[key][0], 64)
     reads, syncs, trips, seconds, x = {}, {}, {}, {}, {}
     for copies in (1, 16):
-        def run():
-            return lp_run(key, card, np.tile(x0b, (copies, 1)))
+        def counted():
+            return run(np.tile(x0b, (copies, 1)))
 
         syncs[copies], (reads[copies], r) = host_read_sites(
-            lambda: count_bool_reads(run, READ_METHODS))
+            lambda: count_bool_reads(counted, READ_METHODS))
         trips[copies], seconds[copies] = r["trips"], r["seconds"]
         x[copies] = r["out"].it.x.reshape(copies, 64, -1)
     dx = (x[16] - x[1]).abs().amax(dim=(0, 2))
@@ -2010,6 +2147,289 @@ def lp_lanes_phase(log, card="cuda"):
                 line += (f"; first trip traced: {kernels} kernels, wall {wall:.2f} ms, device "
                          f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}")
             ties = lp_samples(key, got["out"], card)
+            line += (f"; {BATCH_SAMPLES} lanes against their single-lane solve on the card: "
+                     f"same status, iterations and x within 1e-9"
+                     + (f" but the certified rounding ties {ties}" if ties else ""))
+        log(14, line)
+
+
+# ---- phase 14, continued: the quasi-Newton, dynamic and parametric lanes -------
+# The last routes to batch (ROUTE_RUNS, B = 1024 each): HS71 from bench.py's
+# starts under DAMPED_BFGS and SR1 through batched_solve and under
+# DAMPED_BFGS through batched_solve_mp; the parametric Cauchy sweep, COARSE
+# on hs118 (its LP re-solved by the simplex) and FINE on HS71 (by
+# enumeration); phase 10's two dynamic problems from x0 + U(-0.5, 0.5).
+# Every lane is held to the JAX package's lane (BATCH_ROUTES_REF, written by
+# tools/batch_routes_reference.py) and sampled lanes to the port's
+# single-lane solve on the card.
+BATCH_ROUTES_REF = "artifacts/batch_routes_jax_cpu.json"
+ROUTES_BATCH = 1024
+DYN_SPREAD = 0.5
+DYN_SEEDS = {"dyn_rosenbrock": 10, "dyn_constrained": 11}
+# name: (problem, settings keywords, batched_solve_mp?, max iterations)
+ROUTE_RUNS = {
+    "hs71_dbfgs": ("hs71", {"hess_eval": "DAMPED_BFGS"}, False, 100),
+    "hs71_sr1": ("hs71", {"hess_eval": "SR1"}, False, 100),
+    "hs71_dbfgs_mp": ("hs71", {"hess_eval": "DAMPED_BFGS"}, True, 100),
+    "hs118_coarse": ("hs118", {"parametric_cauchy": "COARSE"}, False, 200),
+    "hs71_fine": ("hs71", {"parametric_cauchy": "FINE"}, False, 100),
+    "dyn_rosenbrock": ("dyn_rosenbrock", {}, False, 500),
+    "dyn_constrained": ("dyn_constrained", {}, False, 500),
+}
+
+
+def route_problem(name, device):
+    """The problem of a ROUTE_RUNS row on ``device``."""
+    if name.startswith("dyn_"):
+        return dyn_problems(device)[name[4:]][0]
+    return dense_problem(name, device)[0]
+
+
+def route_starts(name, batch):
+    """The starts of a ROUTE_RUNS row: HS71 bench.py's (``batch_starts``),
+    hs118 ``lp_starts``'; a dynamic problem its x0 and x0 + U(-DYN_SPREAD,
+    DYN_SPREAD) per coordinate from default_rng(DYN_SEEDS[name]), lane 0 at
+    x0.  The first rows do not depend on ``batch``."""
+    if name == "hs71":
+        return batch_starts(batch)
+    if name == "hs118":
+        return lp_starts(name, batch)
+    x0 = np.asarray(dyn_problems("cpu")[name[4:]][1], dtype=np.float64)
+    rng = np.random.default_rng(DYN_SEEDS[name])
+    starts = x0[None, :] + rng.uniform(-DYN_SPREAD, DYN_SPREAD, (batch, len(x0)))
+    starts[0] = x0
+    return starts
+
+
+def route_settings(key):
+    """The port's Settings of ROUTE_RUNS[key]."""
+    enums = {"hess_eval": HessEval, "parametric_cauchy": ParametricCauchy}
+    return Settings(**{k: enums[k][v] for k, v in ROUTE_RUNS[key][1].items()})
+
+
+def route_run(key, device, starts=None):
+    """One run of ROUTE_RUNS[key] on ``device`` through the entry point a
+    user calls, from ``starts`` (the run's own by default): its state, its
+    phase-1 state (``batched_solve_mp``), seconds and lockstep trips."""
+    name, _, mp, max_it = ROUTE_RUNS[key]
+    problem = route_problem(name, device)
+    x0b = route_starts(name, ROUTES_BATCH) if starts is None else starts
+    entry = pb.batched_solve_mp if mp else pb.batched_solve
+    phase1, real_phase1 = [], pb.mp_phase1
+
+    def recorded(*args, **kwargs):
+        phase1.append(real_phase1(*args, **kwargs))
+        return phase1[-1]
+
+    pb.mp_phase1 = recorded
+    try:
+        with Trips() as trips:
+            out, seconds = timed(lambda: entry(problem, route_settings(key), x0b, max_it,
+                                               device=device), device)
+    finally:
+        pb.mp_phase1 = real_phase1
+    return dict(out=out, p1=phase1[0] if mp else None, seconds=seconds, trips=trips.count)
+
+
+def mp_phase1_counts(key, device, p1):
+    """The phase-1 OPTIMAL counts of a ``batched_solve_mp`` run (its phase-1
+    state ``p1``) and of MP_EXTRA_SETS start sets moved by 4 k float32
+    ulps (k = 1, 2, ...)."""
+    name = ROUTE_RUNS[key][0]
+    problem, settings = route_problem(name, device), route_settings(key)
+    counts = [int((p1.status == int(Status.OPTIMAL)).sum())]
+    for k in range(1, MP_EXTRA_SETS + 1):
+        q1 = pb.mp_phase1(problem, settings, batch_starts(ROUTES_BATCH, k), 20)
+        counts.append(int((q1.status == int(Status.OPTIMAL)).sum()))
+    return counts
+
+
+# Rounding ties.  HS71 under a quasi-Newton Hessian is rich in them: its
+# working set often pins every direction (P g is rounding noise that GLTR
+# follows) and its trial linesearch meets a variable bound at the last bit
+# of the step, so a lane's decisions there follow the last bits of sums that
+# the packages, and the card and the CPU, order differently
+# (tests/test_torch_batch_qn.py certifies such ties lane by lane at B = 8,
+# certified_tie).  At B = 1024 on the CPU 70 (DAMPED_BFGS) and 100 (SR1)
+# of the 1024 lanes part from JAX's (x 1e-8 to 1.04e-6 apart, iterations up
+# to 2 and 4 apart), so on these runs (TIE_RUNS) the ties are held by rule,
+# not by name: a tie is a lane whose x parts by more than 1e-8 or whose
+# iterations differ; at most ROUTE_TIE_SHARE of the lanes are ties, each
+# with JAX's status, x within ROUTE_TIE_X (the solves stop at residuals of
+# 1e-6), iterations within ROUTE_TIE_ITERATIONS and certified residuals;
+# the lanes' mean iterations within ROUTE_TIE_MEAN_ITERATIONS of JAX's
+# (CPU: 7.958 against 7.960, 7.538 against 7.558).  Every other run has no
+# tie on the CPU and may have none.
+TIE_RUNS = ("hs71_dbfgs", "hs71_sr1", "hs71_dbfgs_mp")
+ROUTE_TIE_SHARE = 0.15
+ROUTE_TIE_X = 2e-6
+ROUTE_TIE_ITERATIONS = 4
+ROUTE_TIE_MEAN_ITERATIONS = 0.1
+# batched_solve_mp's phase 1 is held as a distribution: the phase-1 OPTIMAL
+# counts of the run's starts and of MP_EXTRA_SETS more start sets moved by
+# 4 k float32 ulps (batch_starts) against JAX's over PERTURBATIONS sets
+# (BATCH_ROUTES_REF), means within four standard errors.  With DAMPED_BFGS
+# the port's counts spread wider than JAX's on the CPU (273-374 against
+# 274-315 over k = 0..7), so JAX's band alone (phase1_band) is too narrow.
+MP_EXTRA_SETS = 3
+# A lane whose float32 phase 1 ends elsewhere than JAX's starts its float64
+# polish elsewhere too, and may need more than the polish's 12 iterations:
+# on the card lane 262 of one run ended phase 1 OPTIMAL after 10 iterations
+# (JAX: 13) and its polish ABORT_ITER after 12 more, and JAX's phase 2 from
+# the card's phase-1 states ends that lane the same way, ABORT_ITER at 22
+# iterations, every other lane as the card's
+# (tools/batch_routes_reference.py --from-states).  Such a phase-1 tie may
+# end ABORT_ITER with the whole polish spent, on at most MP_CAPPED_SHARE of
+# the lanes.
+MP_CAPPED_SHARE = 0.01
+MP_POLISH = 12  # batched_solve_mp's polish_iterations
+
+
+def route_gate(key, got, ref, device):
+    """Hold every lane of a run of ROUTE_RUNS[key] (``got``: ``route_run``'s
+    result) to JAX's (``ref``: the BATCH_ROUTES_REF JSON): the same status,
+    iterations and x within 1e-8, but for the rounding ties of TIE_RUNS
+    (held by the rule above); ``batched_solve_mp``'s float32 phase 1 as a
+    distribution (``got["p1_counts"]``) and its phase 2 lane by lane
+    (``phase1_mismatch``), a lane whose phase 1 parts from JAX's held to
+    the certified residuals.  Raises on a failed check; returns a summary."""
+    name, _, mp, _ = ROUTE_RUNS[key]
+    run, out = ref["runs"][key], got["out"]
+    batch = len(run["status"])
+    check(np.array_equal(np.asarray(ref["starts"][name])[:batch], route_starts(name, batch)),
+          f"{key}: the reference's starts are not chip_smoke.route_starts'")
+    status, iters = out.status.cpu().numpy(), out.iteration.cpu().numpy()
+    x = out.it.x.cpu().numpy()
+    ref_status, ref_iters, ref_x = (np.asarray(run[k]) for k in ("status", "iterations", "x"))
+    capped = np.zeros(batch, dtype=bool)
+    if mp:
+        p1_status = got["p1"].status.cpu().numpy()
+        p1_iters = got["p1"].iteration.cpu().numpy()
+        capped = ((status == int(Status.ABORT_ITER)) & (iters - p1_iters == MP_POLISH)
+                  & ((p1_status != np.asarray(run["phase1_status"]))
+                     | (p1_iters != np.asarray(run["phase1_iterations"]))))
+        check(capped.sum() <= MP_CAPPED_SHARE * batch,
+              f"{key} on {device}: {int(capped.sum())} phase-1 ties end ABORT_ITER")
+    bad = np.flatnonzero((status != ref_status) & ~capped)
+    check(bad.size == 0, f"{key} on {device}: lanes {bad.tolist()[:10]} end "
+                         f"{status[bad][:10].tolist()}, JAX {ref_status[bad][:10].tolist()}")
+    p1_ties, phase1 = np.zeros(batch, dtype=bool), ""
+    if mp:
+        failed, p = phase1_mismatch(got["p1"], out, run)
+        counts = np.asarray(got["p1_counts"], dtype=float)
+        jax_counts = np.asarray(run["phase1_optimal_perturbed"], dtype=float)
+        sem = np.sqrt(counts.var(ddof=1) / len(counts) + jax_counts.var(ddof=1) / len(jax_counts))
+        if abs(counts.mean() - jax_counts.mean()) > 4 * sem:
+            failed.append(f"phase-1 OPTIMAL counts {counts.tolist()} against JAX's "
+                          f"{jax_counts.tolist()}: means more than four standard errors apart")
+        check(not failed, f"{key} on {device}: " + "; ".join(failed))
+        p1_ties = p["ties"]
+        phase1 = (f"; phase 1: {p['count']} lanes OPTIMAL (JAX {p['jax_count']}; over "
+                  f"{len(counts)} start sets {counts.astype(int).tolist()}, JAX's over "
+                  f"{len(jax_counts)} {jax_counts.astype(int).tolist()}), {int(p1_ties.sum())} "
+                  f"phase-1 ties; warm lanes' phase 2 {p['warm_mean']:.2f} iterations on "
+                  f"average (JAX {p['jax_warm_mean']:.2f}); phase-1 ties ending ABORT_ITER "
+                  f"with the polish spent: {np.flatnonzero(capped).tolist()}")
+    it_gap = np.abs(iters - ref_iters)
+    dx = np.abs(x - ref_x).max(axis=1)
+    ties = ((dx > 1e-8) | (it_gap > 0)) & ~p1_ties
+    if key not in TIE_RUNS:
+        check(not ties.any(), f"{key} on {device}: lanes {np.flatnonzero(ties).tolist()[:10]} part "
+                              f"from JAX's (x {dx[ties][:10].tolist()} apart, iterations "
+                              f"{iters[ties][:10].tolist()} against {ref_iters[ties][:10].tolist()})")
+    far = np.flatnonzero(ties & ((dx > ROUTE_TIE_X) | (it_gap > ROUTE_TIE_ITERATIONS)))
+    check(far.size == 0, f"{key} on {device}: lanes {far.tolist()[:10]} part from JAX's by x "
+                         f"{dx[far][:10].tolist()}, iterations {iters[far][:10].tolist()} against "
+                         f"{ref_iters[far][:10].tolist()}")
+    check(ties.sum() <= ROUTE_TIE_SHARE * batch,
+          f"{key} on {device}: {int(ties.sum())} of {batch} lanes are rounding ties")
+    plain = ~p1_ties
+    mean_gap = float(iters[plain].mean() - ref_iters[plain].mean()) if plain.any() else 0.0
+    check(abs(mean_gap) <= ROUTE_TIE_MEAN_ITERATIONS,
+          f"{key} on {device}: mean iterations {mean_gap:+.3f} from JAX's")
+    held = ties | p1_ties
+    if (held & ~capped).any():
+        feas, stat = (float(getattr(out, k)[torch.as_tensor(held & ~capped)].max())
+                      for k in ("feas_res", "stat_res"))
+        check(feas <= 1e-6 and stat <= 1e-6,
+              f"{key} on {device}: tie lanes certify residuals {feas:.2e}, {stat:.2e}")
+    ok = status == int(Status.OPTIMAL)
+    return (f"{int(ok.sum())}/{batch} OPTIMAL as JAX's, iterations {int(iters.min())}-"
+            f"{int(iters.max())} (mean {mean_gap:+.3f} from JAX's), x within "
+            f"{float(dx[~held].max(initial=0.0)):.2e} of JAX's off the ties; {int(ties.sum())} "
+            f"rounding ties (x up to {float(dx[ties].max(initial=0.0)):.2e} apart, iterations "
+            f"up to {int(it_gap[ties].max(initial=0))})" + phase1)
+
+
+def route_samples(key, got, device):
+    """BATCH_SAMPLES lanes of a run (``got``: ``route_run``'s result)
+    against the port's single-lane solve on ``device``: the same status
+    and iterations, x within 1e-9, but for a lane certified as a rounding
+    tie (``certified_tie``; held to the status, iterations within 3 and x
+    within 1e-6).  A ``batched_solve_mp`` lane is held from its phase-1
+    state (``single_lane_phase2``): its float32 phase 1 is chaotic, and
+    held as a distribution.  Returns the ties."""
+    name, _, mp, max_it = ROUTE_RUNS[key]
+    problem, settings = route_problem(name, device), route_settings(key)
+    x0b, out = route_starts(name, ROUTES_BATCH), got["out"]
+    ties = []
+    for b in np.linspace(0, ROUTES_BATCH - 1, BATCH_SAMPLES).astype(int).tolist():
+        if mp:
+            alone = single_lane_phase2(problem, settings, pb.lane(got["p1"], b), x0b[b],
+                                       MP_POLISH)
+        else:
+            alone = solve(problem, settings, x0b[b], max_it, device=device)
+        check(int(alone.status) == int(out.status[b]),
+              f"{key} lane {b}: status {int(out.status[b])}, single-lane {int(alone.status)}")
+        dx = float((alone.it.x - out.it.x[b]).abs().max())
+        gap = abs(int(alone.iteration) - int(out.iteration[b]))
+        if gap == 0 and dx <= 1e-9:
+            continue
+        certified = (not mp and gap <= 3 and dx <= 1e-6 and certified_tie(
+            problem, settings, single_lane_states(problem, settings, x0b[b], max_it), 8))
+        check(certified, f"{key} lane {b} parts from its single-lane solve (iterations "
+                         f"{int(out.iteration[b])} against {int(alone.iteration)}, x {dx:.3e}) "
+                         f"and is no rounding tie")
+        ties.append(b)
+    return ties
+
+
+def routes_lanes_phase(log, card="cuda"):
+    """Phase 14, continued (``card="cpu"`` rehearses it): the quasi-Newton,
+    dynamic and parametric lanes (ROUTE_RUNS).  On the card each run first
+    counts its host reads at B = 64 and 1024 (``reads_by_size``; these runs
+    warm up the shapes), then runs once, timed; the first lockstep trip of
+    each run is traced, and BATCH_SAMPLES lanes are held to their
+    single-lane solve.  On the CPU one run each."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), BATCH_ROUTES_REF)) as fh:
+        ref = json.load(fh)
+    on_card = card == "cuda"
+    for key, (name, _, mp, _) in ROUTE_RUNS.items():
+        reads = ""
+        if on_card:
+            reads = reads_by_size(key, lambda starts: route_run(key, card, starts),
+                                  route_starts(name, 64))
+        got = route_run(key, card)
+        if mp:
+            got["p1_counts"] = mp_phase1_counts(key, card, got["p1"])
+        report = route_gate(key, got, ref, card)
+        seconds, trips = got["seconds"], got["trips"]
+        iters = int(got["out"].iteration.sum())
+        line = (f"{key} B={ROUTES_BATCH} on the {'card' if on_card else 'CPU'}: {report}; "
+                f"{seconds:.3f} s per batch, {ROUTES_BATCH / seconds:.1f} solves/s, "
+                f"{iters / seconds:.1f} instance-iterations/s; {trips} lockstep trips, "
+                f"{1e3 * seconds / max(trips, 1):.2f} ms a trip")
+        if on_card:
+            line += "; " + reads
+            problem, settings = route_problem(name, card), route_settings(key)
+            x0b = route_starts(name, ROUTES_BATCH)
+            if mp:
+                problem, settings = problem.astype(torch.float32), pb.mp_settings(settings)
+                x0b = torch.as_tensor(x0b, dtype=torch.float32)
+            kernels, wall, busy = traced_trip(problem, settings, x0b, card)
+            line += (f"; first trip{' of phase 1' if mp else ''} traced: {kernels} kernels, wall "
+                     f"{wall:.2f} ms, device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}")
+            ties = route_samples(key, got, card)
             line += (f"; {BATCH_SAMPLES} lanes against their single-lane solve on the card: "
                      f"same status, iterations and x within 1e-9"
                      + (f" but the certified rounding ties {ties}" if ties else ""))

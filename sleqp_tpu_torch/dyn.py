@@ -20,7 +20,10 @@ start of the next iteration (``problem_solver.py``).  Derivatives go
 through ``eval`` at the same accuracy by reverse-mode AD: the gradient by
 ``grad``, the Jacobian by ``jacrev`` and the Hessian product by the ``vjp``
 of the Lagrangian gradient (the reference uses ``jacfwd`` and ``jvp``).
-``eval`` follows its arguments' dtype and device, as every callable does.
+``eval`` follows its arguments' dtype and device, as every callable does,
+and is written for one x: under ``torch.func.vmap`` (``parallel/batch.py``)
+it is vmapped with the iteration, each lane with its own x, error bound
+and weights.
 """
 
 from __future__ import annotations

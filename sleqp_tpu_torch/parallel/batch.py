@@ -14,16 +14,20 @@ never one per lane, so the host reads of an iteration do not grow with B.
 A lane that has stopped is frozen by a select while the others go on, as
 under ``vmap`` of ``while_loop``.
 
-The batched route is the dense iteration with exact Hessians, the Cauchy
-LP by every backend (vertex enumeration, the bounded simplex with its dual
-warm start, reduced re-solve and float64 polish, or PDLP; the box step when
-there are no constraints), and the GLTR, CG or Gauss-Newton/LSQR Newton
-step (an ``LSQFunc``), on both ``compute_dtype`` routes; with
-``restoration=True`` the lanes that end LOCALLY_INFEASIBLE get one
-restoration attempt (``restoration.solve_with_restoration``).  The simplex
-reads one flag a pivot and PDLP one a block of PDHG iterations, for all
-lanes.  Quasi-Newton Hessians, dynamic functions and the parametric Cauchy
-sweep raise ``NotImplementedError`` naming their ROADMAP.md item.
+Every route of the single-lane solve batches: the dense iteration with
+exact Hessians, limited-memory quasi-Newton Hessians (DAMPED_BFGS,
+SIMPLE_BFGS and SR1, block-structured by a ``hess_struct`` too) or a
+dynamic (inexact) function's (``DynFunc``); the Cauchy LP by every backend
+(vertex enumeration, the bounded simplex with its dual warm start, reduced
+re-solve and float64 polish, or PDLP; the box step when there are no
+constraints), with or without the parametric sweep of its radius; and the
+GLTR, CG or Gauss-Newton/LSQR Newton step (an ``LSQFunc``), on both
+``compute_dtype`` routes; with ``restoration=True`` the lanes that end
+LOCALLY_INFEASIBLE get one restoration attempt
+(``restoration.solve_with_restoration``).  The simplex reads one flag a
+pivot, PDLP one a block of PDHG iterations and the parametric sweep one a
+re-solve, for all lanes; the pair push of a quasi-Newton Hessian and the
+re-evaluation of a dynamic function read one flag an iteration.
 
 ``sharded_solve`` splits a batch over the ranks of a mesh axis
 (``parallel/ranks.py``): each rank solves its shard as above, and one
@@ -44,13 +48,10 @@ from ..problem import Problem
 from ..problem_solver import SolverState, initial_state, perform_iteration, solve_from
 from ..settings import Settings
 from ..restoration import make_restoration_problem, solve_with_restoration
-from ..types import HessEval, ParametricCauchy, Status
+from ..types import Status
 from .collectives import all_gather_rows, axis_group, psum
 
 Tensor = torch.Tensor
-
-# where the routes this module does not batch stand in ROADMAP.md queue A
-ROUTES_ITEM = "ROADMAP.md queue A item 11c"
 
 MIN_RADIUS = 1e-4  # phase 2 of batched_solve_mp never inherits a smaller radius
 
@@ -70,20 +71,7 @@ def stack_lanes(trees) -> Any:
     return tree_map(lambda *ts: torch.cat(ts, dim=0), *trees)
 
 
-# ---- the route -----------------------------------------------------------
-
-
-def check_route(problem: Problem, settings: Settings) -> None:
-    """Raise ``NotImplementedError`` for a problem or settings whose route
-    the batched solve does not run."""
-    m = problem.num_cons
-    if isinstance(problem.func, DynFunc):
-        raise NotImplementedError(f"batched dynamic functions: {ROUTES_ITEM}")
-    if settings.hess_eval != HessEval.EXACT:
-        raise NotImplementedError(f"batched quasi-Newton Hessians: {ROUTES_ITEM}")
-    if (m > 0 and settings.parametric_cauchy != ParametricCauchy.DISABLED
-            and settings.use_quadratic_model):
-        raise NotImplementedError(f"batched parametric Cauchy sweep: {ROUTES_ITEM}")
+# ---- the entry points ------------------------------------------------------
 
 
 def _lanes_x0(problem: Problem, x0_batch: Any) -> Tensor:
@@ -92,9 +80,6 @@ def _lanes_x0(problem: Problem, x0_batch: Any) -> Tensor:
         raise ValueError(f"x0_batch must be (B, {problem.num_variables}), "
                          f"got {tuple(x0.shape)}")
     return x0
-
-
-# ---- the entry points ------------------------------------------------------
 
 
 def batched_initial_state(problem: Problem, settings: Settings, x0_batch: Any,
@@ -113,7 +98,6 @@ def batched_step(problem: Problem, settings: Settings, states: SolverState,
     benchmarking and parity), stopped lanes included, as the reference's
     ``vmap`` of ``perform_iteration``."""
     problem = problem.to(resolve_device(device))
-    check_route(problem, settings)
     return vmap_lanes(lambda s: perform_iteration(problem, settings, s), states)
 
 
@@ -140,7 +124,6 @@ def batched_solve(problem: Problem, settings: Settings, x0_batch: Any,
     lane does, the result equals ``restoration=False`` bit for bit, at the
     cost of one read.  ``device=None`` means CUDA."""
     problem = problem.to(resolve_device(device))
-    check_route(problem, settings)
     states = batched_initial_state(problem, settings, x0_batch, device=problem.device)
     return vmap_lanes(_lane_solver(problem, settings, max_iterations, restoration), states)
 
@@ -181,7 +164,6 @@ def mp_phase2(problem: Problem, settings: Settings, st32: SolverState, x0_batch:
     phase 1 ended OPTIMAL, else from its x0; ``iteration`` counts both
     phases."""
     dtype = problem.dtype
-    check_route(problem, settings)
     x0 = _lanes_x0(problem, x0_batch)
     ok = st32.status == int(Status.OPTIMAL)
 
@@ -211,11 +193,11 @@ def batched_solve_mp(problem: Problem, settings: Settings, x0_batch: Any,
     (``mp_phase2``) re-solves in the problem's dtype for at most
     ``polish_iterations``, so that every certified quantity (residuals,
     duals, the optimality test) comes from the problem's dtype.  A float32
-    problem has no second phase and goes to ``batched_solve``.
+    problem has no second phase, and a dynamic function certifies against
+    error bounds that float32 cannot hold: both go to ``batched_solve``.
     ``device=None`` means CUDA."""
     problem = problem.to(resolve_device(device))
-    check_route(problem, settings)
-    if problem.dtype == torch.float32:
+    if isinstance(problem.func, DynFunc) or problem.dtype == torch.float32:
         return batched_solve(problem, settings, x0_batch, max_iterations, device=problem.device)
     x0 = _lanes_x0(problem, x0_batch)
     st32 = mp_phase1(problem, settings, x0, min(coarse_iterations, max_iterations), coarse_tol)

@@ -9,9 +9,15 @@ the warm-started LP each time.  The accepted direction replaces the
 Cauchy linesearch (full step), and the LP trust radius is updated.
 
 The reference's ``lax.cond`` between the two sweeps is a branch on one
-host read; each of its ``lax.while_loop``s is a Python loop that reads
-one stop flag a step, with the reference's caps (5 resolves COARSE, 10
-FINE).
+host read; each of its ``lax.while_loop``s is a ``lanes.lockstep`` loop
+whose state holds a per-lane resolve count and ``done`` flag, the
+reference's cap (5 resolves COARSE, 10 FINE) inside the flag, so one
+instance reads one stop flag a resolve, as a plain loop.  Under ``vmap``
+each sweep runs when any lane takes it, on the lanes that take it, and
+the two results are selected per lane, as the reference's ``lax.cond``
+under ``vmap`` selects them.  A lane that is done still runs the trip's
+LP re-solve (its result is not kept), as in the reference's
+``while_loop`` under ``vmap``.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch
 
 from .cauchy import CauchyResult, solve_cauchy_lp
 from .iterate import Iterate, total_violation
-from .lanes import tree_where
+from .lanes import is_batched, lanes_any, lanes_where, lockstep, tree_where
 from .merit import Direction, make_direction
 from .problem import ProblemData
 from .types import LPSolver, ParametricCauchy
@@ -70,33 +76,47 @@ def parametric_solve(
                                lp_solver=lp_solver, pdlp_tol=pdlp_tol,
                                compute_dtype=compute_dtype)
 
-    direction = direction_of(cres.lp_step)
-    quad, sufficient0 = merit_and_decrease(direction)
-    radius = lp_trust_radius
-    count = 0
-    if bool(sufficient0):
-        # forward: the radius grows while the quadratic merit strictly improves
-        while True:
-            trial_radius = radius * increase
-            res = resolve(trial_radius, cres)
-            d = direction_of(res.lp_step)
-            q, _ = merit_and_decrease(d)
-            improved = q < quad - settings_eps * (1.0 + quad.abs())
-            count += 1
-            radius = torch.where(improved, trial_radius, radius)
-            cres = tree_where(improved, res, cres)
-            direction = tree_where(improved, d, direction)
-            quad = torch.where(improved, q, quad)
-            if not (bool(improved) and count < max_resolves):
-                break
-    else:
-        # backtrack: the radius shrinks until sufficient decrease holds
-        while True:
-            radius = radius * decrease
-            cres = resolve(radius, cres)
-            direction = direction_of(cres.lp_step)
-            quad, sufficient = merit_and_decrease(direction)
-            count += 1
-            if bool(sufficient) or count >= max_resolves:
-                break
-    return cres, radius, direction, quad
+    d0 = direction_of(cres.lp_step)
+    quad0, sufficient0 = merit_and_decrease(d0)
+
+    def start(done: Tensor) -> dict:
+        return dict(radius=lp_trust_radius, cres=cres, direction=d0, quad=quad0,
+                    count=torch.zeros((), dtype=torch.int32, device=quad0.device), done=done)
+
+    def not_done(s: dict) -> Tensor:
+        return ~s["done"]
+
+    def forward_body(s: dict, trip: int) -> dict:
+        # the radius grows while the quadratic merit strictly improves
+        radius = s["radius"] * increase
+        res = resolve(radius, s["cres"])
+        d = direction_of(res.lp_step)
+        q, _ = merit_and_decrease(d)
+        improved = q < s["quad"] - settings_eps * (1.0 + s["quad"].abs())
+        count = s["count"] + 1
+        return dict(radius=torch.where(improved, radius, s["radius"]),
+                    cres=tree_where(improved, res, s["cres"]),
+                    direction=tree_where(improved, d, s["direction"]),
+                    quad=torch.where(improved, q, s["quad"]),
+                    count=count, done=~(improved & (count < max_resolves)))
+
+    def backtrack_body(s: dict, trip: int) -> dict:
+        # the radius shrinks until sufficient decrease holds
+        radius = s["radius"] * decrease
+        res = resolve(radius, s["cres"])
+        d = direction_of(res.lp_step)
+        q, sufficient = merit_and_decrease(d)
+        count = s["count"] + 1
+        return dict(radius=radius, cres=res, direction=d, quad=q, count=count,
+                    done=sufficient | (count >= max_resolves))
+
+    # lanes outside a sweep start it done; the first trip's lanes are known
+    run_forward = lanes_any(sufficient0)
+    run_backtrack = lanes_any(~sufficient0) if is_batched(sufficient0) else not run_forward
+    out = None
+    if run_forward:
+        out = lockstep(not_done, forward_body, start(~sufficient0), first=sufficient0)
+    if run_backtrack:
+        back = lockstep(not_done, backtrack_body, start(sufficient0), first=~sufficient0)
+        out = back if out is None else lanes_where(sufficient0, out, back)
+    return out["cres"], out["radius"], out["direction"], out["quad"]

@@ -19,20 +19,17 @@ selects with ``where``, the port selects with ``torch.where``, which takes
 nothing (NaN or inf included) from the side it does not select; a stopping
 iteration returns its stopped state without evaluating the trial point.
 
-The loops and the branches of the route ``parallel/batch.py`` batches (the
-Cauchy LP by enumeration or the box step, exact Hessians, GLTR or CG)
-read their flags through ``lanes.py``: under ``torch.func.vmap`` a branch is
-taken when any lane needs it and its result selected per lane, a loop runs
-its lanes in lockstep, and a lane that stops keeps its stopped state while
-the others iterate.  On one instance the same code reads the same flags as
-a plain loop.
-
-Quasi-Newton Hessians (``hess_eval != EXACT``) push their pair on one
-host read of ``qn_prev.pending``; the parametric Cauchy sweep and the
-Gauss-Newton step of an ``LSQFunc`` read one stop flag per LP re-solve or
-LSQR step, and the PDLP LP backend one flag per block of PDHG iterations.
-A dynamic (inexact) function (``dyn.py``) re-evaluates the iterate on one
-host read of ``refresh_eval``.
+Every loop and branch reads its flags through ``lanes.py``: under
+``torch.func.vmap`` (``parallel/batch.py``) a branch is taken when any lane
+needs it and its result selected per lane, a loop runs its lanes in
+lockstep, and a lane that stops keeps its stopped state while the others
+iterate.  On one instance the same code reads the same flags as a plain
+loop.  Quasi-Newton Hessians (``hess_eval != EXACT``) push their pair on
+one read of ``qn_prev.pending``, and a dynamic (inexact) function
+(``dyn.py``) re-evaluates the iterate on one read of ``refresh_eval``; the
+parametric Cauchy sweep and the Gauss-Newton step of an ``LSQFunc`` read
+one stop flag per LP re-solve or LSQR step, the simplex one a pivot and
+the PDLP LP backend one a block of PDHG iterations.
 """
 
 from __future__ import annotations
@@ -256,10 +253,11 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
     # ---- dynamic functions: refresh the iterate at a tightened bound --
     is_dynamic = isinstance(problem.func, DynFunc)
     iterate_err = state.error_est
-    if is_dynamic and bool(state.refresh_eval):
-        obj, grad, cons, jac, iterate_err = problem.func.eval_all_dyn(
+    if is_dynamic and lanes_any(state.refresh_eval):
+        obj, grad, cons, jac, err = problem.func.eval_all_dyn(
             it.x, state.error_bound, state.penalty)
-        it = dataclasses.replace(it, obj_val=obj, obj_grad=grad, cons_val=cons, cons_jac=jac)
+        fresh = dataclasses.replace(it, obj_val=obj, obj_grad=grad, cons_val=cons, cons_jac=jac)
+        it, iterate_err = lanes_where(state.refresh_eval, (fresh, err), (it, iterate_err))
 
     # ---- feasibility bookkeeping + global penalty reset ---------------
     feas_now = max_violation(data, it.cons_val)
@@ -323,16 +321,18 @@ def perform_iteration(problem: Problem, settings: Settings, state: SolverState) 
     # ---- quasi-Newton pair push (accepted steps, new duals) -----------
     # pairs push on accepted steps with the Lagrangian gradient difference
     # at the new multipliers (quasi_newton.c:140); the reference's
-    # lax.cond on qn_prev.pending is a branch on one host read
+    # lax.cond on qn_prev.pending is a branch on one host read, its push
+    # selected on the lanes that have a pair pending
     qn = state.qn
     qn_blocks = problem.func.hess_struct
     use_qn = settings.hess_eval != HessEval.EXACT
-    if use_qn and bool(state.qn_prev.pending):
+    if use_qn and lanes_any(state.qn_prev.pending):
         prev = state.qn_prev
         grad_new = it.obj_grad + it.cons_jac.T @ it.cons_dual
         grad_old = prev.grad + prev.jac.T @ it.cons_dual
-        qn = qn_push(qn, it.x - prev.x, grad_new - grad_old, settings.hess_eval,
-                     settings.bfgs_sizing != 0, blocks=qn_blocks)
+        pushed = qn_push(qn, it.x - prev.x, grad_new - grad_old, settings.hess_eval,
+                         settings.bfgs_sizing != 0, blocks=qn_blocks)
+        qn = lanes_where(prev.pending, pushed, qn)
 
     # ---- working step + EQP multipliers -------------------------------
     ws = compute_working_step(data, it, aug_jac, state.trust_radius, settings.eps)

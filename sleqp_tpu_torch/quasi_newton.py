@@ -18,6 +18,8 @@ masked by ``count``.
 
 The window W is small (default 5), so the push is W^2 vector operations
 unrolled in Python, every one on the state's device and none read back.
+The push writes its rows out of place (``_set_row``, a select), so under
+``torch.func.vmap`` each lane's rows land in buffers of its own.
 """
 
 from __future__ import annotations
@@ -200,10 +202,11 @@ def bfgs_push(qn: QNState, s: Tensor, y: Tensor, damped: bool, sizing: bool) -> 
 
 
 def _set_row(buf: Tensor, j: int, value: Tensor) -> Tensor:
-    """``buf.at[j].set(value)`` on a copy."""
-    out = buf.clone()
-    out[j] = value
-    return out
+    """``buf.at[j].set(value)`` out of place: a select, so a batched
+    ``value`` gives a batched buffer (an index write of a batched value
+    into a buffer made inside the push is refused under ``vmap``)."""
+    row = torch.arange(buf.shape[0], device=buf.device) == j
+    return torch.where(row.reshape((-1,) + (1,) * (buf.ndim - 1)), value, buf)
 
 
 def sr1_product(qn: QNState, d: Tensor) -> Tensor:
@@ -248,10 +251,14 @@ def qn_product(qn, d: Tensor, hess_eval: HessEval, blocks: tuple | None = None) 
     per-block states and the product assembles block-wise: variables
     outside every block get zero curvature rows (bfgs.c block handling)."""
     if blocks is not None:
-        out = torch.zeros_like(d)
+        # assembled out of place, zero rows between the blocks: under vmap
+        # the pieces may carry the lane dimension where d does not
+        pieces, at = [], 0
         for (start, end), q in zip(blocks, qn):
-            out[start:end] = _qn_product_one(q, d[start:end], hess_eval)
-        return out
+            pieces += [torch.zeros_like(d[at:start]), _qn_product_one(q, d[start:end], hess_eval)]
+            at = end
+        pieces.append(torch.zeros_like(d[at:]))
+        return torch.cat(pieces)
     return _qn_product_one(qn, d, hess_eval)
 
 

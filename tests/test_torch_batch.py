@@ -296,23 +296,11 @@ def test_krylov_lanes_match_single_lane(solver):
         assert torch.isfinite(lanes[0][b]).all()
 
 
-def test_other_routes_raise():
-    """Routes the batched solve does not run raise NotImplementedError
-    naming their ROADMAP.md item (the SIMPLEX and PDLP Cauchy LPs run:
-    tests/test_torch_batch_simplex.py, tests/test_torch_batch_pdlp.py)."""
-    from sleqp_tpu_torch import HessEval, ParametricCauchy
-    from sleqp_tpu_torch.dyn import DynFunc
-    from sleqp_tpu_torch.problem import Problem
-
+def test_malformed_starts_raise():
+    """A batch of starts that is not (B, n) raises ValueError naming
+    x0_batch (every route batches: tests/test_torch_batch_{simplex,pdlp,qn,
+    dyn,parametric}.py)."""
     _, tp, _ = torch_dense.hs71()
     x0b, _ = hs71_starts()
-    for settings in (Settings(hess_eval=HessEval.DAMPED_BFGS),
-                     Settings(parametric_cauchy=ParametricCauchy.COARSE)):
-        with pytest.raises(NotImplementedError, match="item 11c"):
-            pb.batched_solve(tp, settings, x0b, device="cpu")
-    dyn = DynFunc(lambda x, bound, w_f, w_c: ((x * x).sum(), x.new_zeros(0), bound * 0.0), 2)
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        pb.batched_solve_mp(Problem(dyn, device="cpu"), Settings(), np.ones((2, 2)),
-                            device="cpu")
     with pytest.raises(ValueError, match="x0_batch"):
         pb.batched_solve(tp, Settings(), x0b[0], device="cpu")

@@ -55,10 +55,9 @@ from sleqp_tpu import Settings as JaxSettings
 from sleqp_tpu.harness.driver import get_problem as jax_get_problem
 from sleqp_tpu.parallel import batch as jbatch
 from sleqp_tpu.types import f32_compute_scope
-from sleqp_tpu_torch import Settings, Status, initial_state, solve
+from sleqp_tpu_torch import Settings, Status, solve
 from sleqp_tpu_torch.harness.driver import get_problem
 from sleqp_tpu_torch.parallel import batch as pb
-from sleqp_tpu_torch.problem_solver import solve_from
 from torch_parity import no_jax_cache_writes, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -117,21 +116,6 @@ def test_mixed_vmapped_batch():
     _, _, x_opt = fixtures.hs71_problem()
     np.testing.assert_allclose(out.it.x.numpy(), np.tile(x_opt, (4, 1)), atol=1e-5)
     assert_lanes_match(out, ref, single)
-
-
-def single_lane_phase2(tp, settings, s32, x0, iterations=12):
-    """batched_solve_mp's phase 2 on one lane, from its phase-1 state
-    ``s32``, with the single-lane functions."""
-    fresh = initial_state(tp, settings, x0, device="cpu")
-    if int(s32.status) == Status.OPTIMAL:
-        warm = initial_state(tp, settings, tp.clip_to_bounds(s32.it.x.double()), device="cpu")
-        fresh = dataclasses.replace(
-            warm, penalty=s32.penalty.double(),
-            trust_radius=torch.clamp(s32.trust_radius.double(), min=pb.MIN_RADIUS),
-            lp_trust_radius=torch.clamp(s32.lp_trust_radius.double(), min=pb.MIN_RADIUS),
-            basis=s32.basis)
-    out = solve_from(tp, settings, fresh, iterations)
-    return dataclasses.replace(out, iteration=out.iteration + s32.iteration)
 
 
 def jax_phase1(jp, settings, x0b, iterations=20, coarse_tol=2e-3):
@@ -194,7 +178,7 @@ def test_batched_solve_mp_phase2_matches_single_lane(mp_case):
     for a, b in zip(pb.tree_leaves(lanes), pb.tree_leaves(out)):
         assert torch.equal(a, b)
     for b in range(8):
-        alone = single_lane_phase2(tp, Settings(), pb.lane(st32, b), x0b[b])
+        alone = chip_smoke.single_lane_phase2(tp, Settings(), pb.lane(st32, b), x0b[b], 12)
         assert int(alone.status) == int(lanes.status[b])
         assert int(alone.iteration) == int(lanes.iteration[b])
         np.testing.assert_allclose(lanes.it.x[b].numpy(), alone.it.x.numpy(), rtol=0, atol=1e-9)

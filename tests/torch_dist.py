@@ -33,6 +33,7 @@ sys.path.insert(0, REPO)
 from sleqp_tpu_torch import (  # noqa: E402
     BlockStructuredProblem,
     Func,
+    HessEval,
     Problem,
     Settings,
     Status,
@@ -188,7 +189,8 @@ def ocp_case(case, meshes):
 
 
 def sharded_solve_case(case, meshes):
-    problem, settings = PROBLEMS[case.get("problem", "hs71")](), Settings()
+    problem = PROBLEMS[case.get("problem", "hs71")]()
+    settings = Settings(hess_eval=HessEval[case.get("hess_eval", "EXACT")])
     x0b = np.asarray(case["x0_batch"])
     mesh, restoration = meshes["batch"], case.get("restoration", False)
     out, solved = sharded_solve(problem, settings, x0b, mesh, max_iterations=case["max_iterations"],
