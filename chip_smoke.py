@@ -20,11 +20,17 @@ run from a checkout of the repository, on a machine with a CUDA device and
    folded), with the sums per mixed OCP iteration and per ``cr32``
    factorization, and under ``torch.func.vmap`` on eight lanes, one
    launch each, every lane against the plain version;
-3. the mixed-precision OCP solve: ``ocp_solve`` with
-   ``Settings(compute_dtype="float32")`` on the multistage problem of
-   ``bench.py`` (T = 1560, nx = nu = 32, n = 99 840), with the kernels'
-   launch counts read around the solve, and the time of one iteration;
-4. the float64 route on the same problem as the oracle for phases 3 and 6;
+3. the mixed-precision OCP solve: ``ocp_solve_jit`` (what ``ocp_solve``
+   runs: CUDA graphs of the read-free iteration, one host read a trip)
+   with ``Settings(compute_dtype="float32")`` on the multistage problem of
+   ``bench.py`` (T = 1560, nx = nu = 32, n = 99 840), held bit for bit to
+   the eager loop ``ocp_solve_from`` on the card, with the kernels' launch
+   counts read around the solve (a replay counts its launches), ms an
+   iteration by replay and eager, solve and capture seconds, host reads a
+   trip, kernels and idle share of a traced replay and the Armijo trials'
+   share (``ocp_graph_phase``);
+4. the float64 route on the same problem, the same way, as the oracle for
+   phases 3 and 6;
 5. ``bench.py``'s structured-KKT system (N = 160 blocks of k = 64,
    n = 10 240) through ``block_tridiag_solve_mp`` on four backends, the
    streaming Thomas factor-solve and resolve, and cyclic reduction with a
@@ -32,7 +38,8 @@ run from a checkout of the repository, on a machine with a CUDA device and
    block-Thomas solve; and the dense float64 Cholesky solve of the
    assembled system as the library yardstick;
 6. the float64 OCP solve with ``tridiag_backend="pallas"`` (float32 cyclic
-   reduction with float64 refinement) on the problem of phase 3;
+   reduction with float64 refinement) on the problem of phase 3, the same
+   way;
 7. the dense SLP-EQP solve (``solve``: the Cauchy LP by enumeration or the
    simplex, the GLTR/CG Newton step, linesearches, penalty and trust-region
    updates) on HS71 (``bench.py``), ``chainineq200`` and ``boxqp1000``
@@ -87,7 +94,7 @@ run from a checkout of the repository, on a machine with a CUDA device and
     package's lane (``artifacts/batch_hs71_jax_cpu.json``, written by
     ``tools/batch_reference.py``); solves per second, instance-iterations
     per second, ms per lockstep trip by phase, host reads and kernels per
-    trip; eight lanes against the port's single-lane ``solve`` on the card;
+    trip; four lanes against the port's single-lane ``solve`` on the card;
     then the restoration lanes (``batched_solve(restoration=True)``: the
     Waechter-Biegler batch of ``tests/test_restoration_batched.py`` and 64
     seeded starts of it, every lane OPTIMAL at its solution; HS71 at B =
@@ -100,10 +107,10 @@ run from a checkout of the repository, on a machine with a CUDA device and
     SIMPLEX and PDLP Cauchy LPs in lanes (``LP_RUNS``): hs118 at B = 1024
     through ``batched_solve`` on both compute dtypes and
     ``batched_solve_mp``, hs35 on PDLP at B = 64, on the card (two runs
-    counting host reads, which warm up, then two timed), each lane held to
+    counting host reads, which warm up, then one timed), each lane held to
     the JAX package's lane
     (``artifacts/batch_lp_jax_cpu.json``, written by
-    ``tools/batch_lp_reference.py``) and eight lanes to the port's
+    ``tools/batch_lp_reference.py``) and four lanes to the port's
     single-lane solve; solves per second, instance-iterations per second,
     lockstep trips, simplex or PDHG-block trips a loop, the port's host
     reads at B = 64 and at the same starts x16 (equal), the card's
@@ -113,7 +120,7 @@ run from a checkout of the repository, on a machine with a CUDA device and
     ``batched_solve_mp``, the parametric Cauchy sweep (COARSE on hs118,
     FINE on HS71) and phase 10's two dynamic problems, each lane held to
     the JAX package's lane (``artifacts/batch_routes_jax_cpu.json``,
-    written by ``tools/batch_routes_reference.py``) and eight lanes to the
+    written by ``tools/batch_routes_reference.py``) and four lanes to the
     port's single-lane solve; the same measures;
 15. the sharded paths on four ranks sharing the card (gloo, subprocesses
     of this script with a file rendezvous and a deadline; correctness, not
@@ -129,7 +136,9 @@ run from a checkout of the repository, on a machine with a CUDA device and
     with controls bounded to [-0.3, 0.3] on the mixed route (lanes that
     stop on different trips and backtrack apart), each lane against the
     port's single-lane solve on the card; host reads, merit evaluations
-    and bgj_blocked64 launches against the single lanes';
+    and bgj_blocked64 launches of the eager batched loop against the single
+    lanes'; the entry point's CUDA graphs of the vmapped iteration bit for
+    bit that loop, measured as in phase 3;
 17. the front ends on the card, each held to the JAX package's result
     (``artifacts/frontends_jax_cpu.json``): ``minimize`` (HS71 with dict
     constraints, Rosenbrock as a numpy function through the host path and
@@ -353,6 +362,17 @@ def host_ms(fn, reps=5):
     return sorted(times)[len(times) // 2]
 
 
+@functools.cache
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return smi.stdout.strip().splitlines()[0]
+
+
 def clear_counts():
     for counts in COUNTS:
         for key in counts:
@@ -510,6 +530,159 @@ def solve_summary(out):
         f"feas={float(out.feas_res):.3e} stat={float(out.stat_res):.3e} "
         f"obj={float(out.obj_val):.12g}"
     )
+
+
+def traced(fn):
+    """fn() under torch.profiler, between two synchronizations: (kernels,
+    wall ms, device busy ms: the union of the kernels' intervals)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.time_range.end > e.time_range.start]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, -float("inf")
+    for s, e in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return len(kernels), wall, busy / 1e3
+
+
+def event_ms(fn, reps=5):
+    """Median over ``reps`` calls of fn()'s time between two CUDA events."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+OCP_FIELDS = ("X", "U", "lam", "penalty", "reg", "iteration", "status", "num_accepted",
+              "num_rejected", "obj_val", "feas_res", "stat_res", "last_ratio", "last_alpha")
+
+
+def state_parts(a, b, fields=OCP_FIELDS):
+    """The fields in which two states' bits part, with the largest relative
+    difference of each: {name: rel}."""
+    parts = {}
+    for name in fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if not same_bits(x, y):
+            x, y = x.double(), y.double()
+            parts[name] = float((x - y).abs().max() / y.abs().max().clamp(min=1e-300))
+    return parts
+
+
+def ocp_graph_phase(log, phase, tag, ocp, settings, card, X0=None, backend="auto", x0s=None,
+                    max_iterations=50, eager_run=None, one_read=True):
+    """An OCP solve through ``ocp_solve_jit`` (``ocp_solve``, or with ``x0s``
+    ``batched_ocp_solve``) on the card, held to ``ocp_solve_from`` (the
+    eager loop, under ``vmap`` for a batch) on the same card: the same
+    status, iterations and step counts, every field bit for bit.  The
+    kernels' launch counts are cleared before the first solve (warm-up,
+    captures and replays) and read after it.  Logs ms an iteration by
+    replay and by the eager loop (CUDA events, median of 5), solve seconds
+    both ways, the warm-up and capture seconds, host reads an iteration
+    (with ``one_read`` it must be 1: no linesearch outlasted the trials in
+    the iteration's graph), the kernels and idle share of one traced
+    replay, and the Armijo trials' share of a replay, with the card's name
+    and power limit.  ``eager_run``: (state, seconds, host reads) of the
+    eager loop where the caller ran it.  Returns (graph state, eager state,
+    launches, {"trips": iteration replays of one solve, "launches": an
+    iteration replay's})."""
+    batched = x0s is not None
+    if batched:
+        state0 = vmap_lanes(lambda x: ocp_initial_state(ocp, settings, x0=x), x0s)
+        jit = lambda: batched_ocp_solve(ocp, settings, x0s, max_iterations,  # noqa: E731
+                                        tridiag_backend=backend)
+        eager = lambda: vmap_lanes(  # noqa: E731
+            lambda s: ocp_solve_from(ocp, settings, s, max_iterations, tridiag_backend=backend),
+            state0)
+    else:
+        state0 = ocp_initial_state(ocp, settings, X0=X0)
+        jit = lambda: ocp_module.ocp_solve_jit(  # noqa: E731
+            ocp, settings, state0, max_iterations, tridiag_backend=backend)
+        eager = lambda: ocp_solve_from(ocp, settings, state0, max_iterations,  # noqa: E731
+                                       tridiag_backend=backend)
+    clear_counts()
+    out, first_s = timed(jit)
+    launches = read_counts()
+    graph = ocp_module.iteration_graph(ocp, settings, state0, tridiag_backend=backend,
+                                       batched=batched)
+    replays, graph_reads = dict(graph.replays), graph.reads
+    # the loop's reads: from the initial state(s), which the entry point
+    # builds with a few host-to-device copies of scalars
+    loop = lambda: ocp_module._solve_loop(ocp, settings, state0, max_iterations,  # noqa: E731
+                                          backend, batched)
+    reads, (again, solve_s) = count_host_reads(lambda: timed(loop))
+    trips = graph.replays["iterate"] - replays["iterate"]
+    searches = graph.replays["search"] - replays["search"]
+    graph_reads = graph.reads - graph_reads
+    check(all(same_bits(getattr(again, f), getattr(out, f)) for f in OCP_FIELDS),
+          f"{tag}: a second graph solve parts from the first")
+    if eager_run is None:
+        eager_reads, (ref, eager_s) = count_host_reads(lambda: timed(eager))
+    else:
+        ref, eager_s, eager_reads = eager_run
+    parts = state_parts(out, ref)
+    counts_equal = all(torch.equal(getattr(out, f), getattr(ref, f))
+                       for f in ("status", "iteration", "num_accepted", "num_rejected"))
+    graph.load(state0, max_iterations)
+    replay_ms = event_ms(graph.replay)
+    search_ms = event_ms(lambda: graph.replay("search"))
+    if batched:
+        step = lambda: vmap_lanes(  # noqa: E731
+            lambda s: ocp_perform_iteration(ocp, settings, s, tridiag_backend=backend), state0)
+    else:
+        step = lambda: ocp_perform_iteration(ocp, settings, state0,  # noqa: E731
+                                             tridiag_backend=backend)
+    eager_ms = event_ms(step)
+    graph.load(state0, max_iterations)
+    kernels, wall, busy = traced(graph.replay)
+    trial_ms = search_ms / ocp_module.TRIAL_BLOCK
+    inside = ocp_module.GRAPH_TRIALS * trial_ms / replay_ms
+    all_in = (ocp_module.MAX_LINESEARCH_STEPS * trial_ms
+              / (replay_ms + (ocp_module.MAX_LINESEARCH_STEPS - ocp_module.GRAPH_TRIALS) * trial_ms))
+    iterations = int(out.iteration.max() if batched else out.iteration)  # + 1 trip: the stop
+    log(phase, f"{tag} through ocp_solve_jit (CUDA graphs) against ocp_solve_from on the card: "
+               + (f"{solve_summary(out)}; " if not batched else
+                  f"status {out.status.tolist()} iterations {out.iteration.tolist()}; ")
+               + f"{trips} iteration replays, {searches} trial-block replays; ms an iteration: "
+               f"replay {replay_ms:.3f}, eager {eager_ms:.3f} (CUDA events, median of 5); solve "
+               f"s: graph {solve_s:.3f} (first call {first_s:.3f}: warm-up {graph.warmup_s:.3f}, "
+               f"capture and instantiation {graph.capture_s:.3f}, memory reserved by the "
+               f"captures {graph.reserved_bytes / 2**20:.1f} MiB), eager {eager_s:.3f}; host "
+               f"reads a trip of the loop (the iterations and the trip that finds the stop): "
+               f"graph {reads / trips:.2f} ({reads} over {trips} iteration replays), eager "
+               f"{eager_reads / (iterations + 1):.2f}; one "
+               f"traced replay: {kernels} kernels, device busy {busy:.3f} ms, idle share "
+               f"{1 - busy / replay_ms:.3f} of the untraced replay ({1 - busy / wall:.3f} of the "
+               f"traced {wall:.3f} ms); Armijo trials: {trial_ms:.4f} ms each (a block of "
+               f"{ocp_module.TRIAL_BLOCK} {search_ms:.3f} ms), the {ocp_module.GRAPH_TRIALS} in "
+               f"the iteration's graph {inside:.3f} of its replay (all "
+               f"{ocp_module.MAX_LINESEARCH_STEPS} inside would be {all_in:.3f}); launches an "
+               f"iteration replay {graph.launches['iterate']}; graph against the eager loop: "
+               + ("every field bit for bit" if not parts else f"fields part {parts}")
+               + f"; card '{card}'")
+    check(counts_equal, f"{tag}: status, iterations or step counts part from ocp_solve_from")
+    check(not parts, f"{tag}: the graph parts from ocp_solve_from in {parts}")
+    check(reads == graph_reads, f"{tag}: {reads} host synchronizations, the loop's own reads "
+                                f"{graph_reads}")
+    if one_read:
+        check(reads == trips, f"{tag}: {reads} host reads over {trips} iteration replays, not "
+                              f"one an iteration")
+    return out, ref, launches, dict(trips=trips, launches=graph.launches["iterate"])
 
 
 # The dense solve's problems at the sizes the repository's medium suite runs
@@ -1358,7 +1531,8 @@ BATCH_REF = "artifacts/batch_hs71_jax_cpu.json"
 BATCH_SIZES = (512, 1024)
 BATCH_MAX_IT = 60
 HS71_OPT = 17.0140173
-BATCH_SAMPLES = 8  # lanes held to the port's own single-lane solve on the card
+BATCH_SAMPLES = 4  # lanes held to the port's own single-lane solve on the card (8 until
+# the OCP phases ran twice, graph and eager loop: the script keeps its time)
 COARSE_TOL = 2e-3  # batched_solve_mp's default coarse_tol
 BAND_SIGMAS = 4.0
 WARM_MEAN = 0.5
@@ -1721,22 +1895,7 @@ def traced_trip(problem, settings, x0b, card):
     torch.profiler: (kernels, wall ms, device busy ms)."""
     states = pb.batched_initial_state(problem, settings, x0b, device=card)
     pb.batched_step(problem, settings, states, device=card)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        pb.batched_step(problem, settings, states, device=card)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.time_range.end > e.time_range.start]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, -float("inf")
-    for s, e in spans:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-    return len(kernels), wall, busy / 1e3
+    return traced(lambda: pb.batched_step(problem, settings, states, device=card))
 
 
 def batch_phase(log, card="cuda"):
@@ -2118,7 +2277,7 @@ def lp_lanes_phase(log, card="cuda"):
     """Phase 14, continued (``card="cpu"`` rehearses it): the SIMPLEX and
     PDLP Cauchy LPs in lanes (LP_RUNS).  On the card each run first counts
     its host reads at B = 64 and 1024 (``lp_reads``; these runs warm up the
-    shapes), then runs twice, timed; the first lockstep trip of LP_TRACED
+    shapes), then runs once, timed; the first lockstep trip of LP_TRACED
     is traced, and BATCH_SAMPLES lanes are held to their single-lane solve.
     On the CPU one run each."""
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), BATCH_LP_REF)) as fh:
@@ -2126,7 +2285,7 @@ def lp_lanes_phase(log, card="cuda"):
     on_card = card == "cuda"
     for key, (name, batch, _, mp) in LP_RUNS.items():
         reads = lp_reads(key, card) if on_card else ""
-        runs = [lp_run(key, card) for _ in range(2 if on_card else 1)]
+        runs = [lp_run(key, card)]
         got = runs[-1]
         report = lp_gate(key, got, ref, card)
         seconds = [r["seconds"] for r in runs]
@@ -2952,22 +3111,32 @@ def batched_ocp_phase(log, card="cuda"):
             singles.append(dict(state=st, state0=state0, reads=reads, trips=trips.count,
                                 merits=merits.count, seconds=seconds,
                                 b2=read_counts()["bgj_blocked64"]))
-        # the entry point, as a user calls it: its launches and time
-        clear_counts()
-        with OCPTrips() as trips:
-            out, seconds = timed(lambda: batched_ocp_solve(ocp, settings, x0s, max_iterations=50,
-                                                           device=card), card)
-        counts = read_counts()
-        for n, v in counts.items():
-            launches[n] += v
-        # the same loop from the batched initial states: its host reads,
-        # merit evaluations and time a trip, as the single lanes' above
+        # the eager loop from the batched initial states (ocp_solve_from
+        # under vmap): its trips, host reads, merit evaluations, launches
+        # and time a trip, as the single lanes' above
         states0 = vmap_lanes(lambda x: ocp_initial_state(ocp, settings, x0=x, device=card), x0s)
-        with MeritCalls(ocp) as merits:
+        clear_counts()
+        with OCPTrips() as trips, MeritCalls(ocp) as merits:
             reads, (again, loop_s) = sites(lambda: timed(lambda: vmap_lanes(solve_from, states0),
                                                          card))
-        check(torch.equal(again.U, out.U), f"{tag}: the loop from the batched initial states "
-                                           f"parts from batched_ocp_solve")
+        counts = read_counts()
+        # the entry point, as a user calls it: the graph of the vmapped
+        # iteration, held to the eager loop bit for bit
+        if card == "cuda":
+            out, _, graph_counts, graph = ocp_graph_phase(
+                log, 16, tag, ocp, settings, card_line(), x0s=x0s,
+                eager_run=(again, loop_s, sum(reads.values())), one_read=False)
+            check(graph["launches"]["bgj_blocked64"] == (route == "mixed"),
+                  f"{tag}: bgj_blocked64 launched {graph['launches']['bgj_blocked64']} times a "
+                  f"replay")
+        else:
+            out, seconds = timed(lambda: batched_ocp_solve(ocp, settings, x0s, max_iterations=50,
+                                                           device=card), card)
+            graph_counts = read_counts()
+            check(all(same_bits(getattr(out, f), getattr(again, f)) for f in OCP_FIELDS),
+                  f"{tag}: batched_ocp_solve parts from the eager loop")
+        for n, v in graph_counts.items():
+            launches[n] += v
         check(out.U.shape == (SCENARIOS, T_STAGES, NU) and bool(torch.isfinite(out.U).all()),
               f"{tag}: U of shape {tuple(out.U.shape)} or not finite")
         ties = []
@@ -3001,8 +3170,8 @@ def batched_ocp_phase(log, card="cuda"):
                 f"{SCENARIOS}/{SCENARIOS} OPTIMAL, iterations {out.iteration.tolist()} as the "
                 f"single lanes'" + (f" but the certified ties {ties}" if ties else "")
                 + f"; rejected steps {out.num_rejected.tolist()}; max |U - U_single| "
-                f"{u_max:.3e}; lanes differ by >= {spread:.3e}; {seconds:.3f} s per batch (the "
-                f"rollouts included), {1e3 * loop_s / trips.count:.2f} ms per lockstep trip "
+                f"{u_max:.3e}; lanes differ by >= {spread:.3e}; eager loop "
+                f"{1e3 * loop_s / trips.count:.2f} ms per lockstep trip "
                 f"({trips.count} trips); single lanes {sum(o['seconds'] for o in singles):.3f} s "
                 f"in all, {1e3 * slow['seconds'] / slow['trips']:.2f} ms per trip; host reads "
                 f"per trip {n_reads / trips.count:.2f} (single lanes "
@@ -3013,6 +3182,9 @@ def batched_ocp_phase(log, card="cuda"):
                 f"{slow['b2'] / slow['trips']:.2f}); launches {counts}")
         check(trips.count == slow["trips"], f"{tag}: {trips.count} trips, the slowest "
                                             f"single lane {slow['trips']}")
+        if card == "cuda":
+            check(graph["trips"] == slow["trips"], f"{tag}: {graph['trips']} graph replays, "
+                                                   f"the slowest single lane {slow['trips']} trips")
         check(counts["bgj_blocked64"] == slow["b2"],
               f"{tag}: bgj_blocked64 launches {counts['bgj_blocked64']} over the batch, the "
               f"slowest single lane {slow['b2']}")
@@ -3195,6 +3367,62 @@ def frontend_phase(log, card="cuda"):
               f"profile_iteration {name}: keys {list(results)}")
 
 
+def mixed_ocp_phase(log, card):
+    """Phase 3: the mixed OCP solve through ``ocp_solve_jit`` against the
+    eager loop; returns (problem, X0, state, launches of the graph's
+    solve)."""
+    mixed = Settings(compute_dtype="float32")
+    ocp, X0 = bench_problem()
+    out, _, launches, _ = ocp_graph_phase(log, 3, f"mixed OCP n={T_STAGES * (NX + NU)}", ocp,
+                                          mixed, card, X0=X0)
+    iters = int(out.iteration)
+    log(3, f"mixed OCP n={T_STAGES * (NX + NU)}: {solve_summary(out)}; launches {launches}")
+    check(out.U.shape == (T_STAGES, NU) and out.X.shape == (T_STAGES + 1, NX), "solution shape")
+    check(bool(torch.isfinite(out.U).all() & torch.isfinite(out.X).all()), "non-finite solution")
+    check(launches["bgj_blocked64"] >= iters, "bgj_blocked64 not launched once per iteration")
+    per_solve = len(cr_batches(T_STAGES))
+    check(launches["bgj_flat"] >= per_solve * iters,
+          f"bgj_flat not launched {per_solve} times per iteration")
+    check(all(launches[n] > 0 for n in KERNELS), f"a kernel was not launched: {launches}")
+    return ocp, X0, out, launches
+
+
+def float64_ocp_phase(log, card, ocp, X0, out):
+    """Phase 4: the float64 route (the block-Thomas scan) through
+    ``ocp_solve_jit`` against the eager loop, as the oracle of phase 3's
+    mixed solve; returns its state."""
+    ref, _, _, _ = ocp_graph_phase(log, 4, "float64 OCP", ocp, Settings(), card, X0=X0)
+    u_err = float((out.U - ref.U).abs().max())
+    log(4, f"float64 OCP: {solve_summary(ref)}; max |U - U_f64| {u_err:.3e}")
+    check(int(ref.status) == Status.OPTIMAL, "float64 route not OPTIMAL")
+    check(int(out.status) == Status.OPTIMAL, "mixed route not OPTIMAL")
+    check(float(out.feas_res) <= 1e-6 and float(out.stat_res) <= 1e-6, "mixed residuals above 1e-6")
+    check(int(out.iteration) <= int(ref.iteration) + 3,
+          "mixed route needs more than 3 extra iterations")
+    check(u_err <= 1e-5, f"mixed U differs from float64 U by {u_err:.3e}")
+    return ref
+
+
+def pallas_ocp_phase(log, card, ocp, X0, ref):
+    """Phase 6: the float64 OCP with ``tridiag_backend="pallas"`` (float32
+    cyclic reduction with float64 refinement) through ``ocp_solve_jit``
+    against the eager loop; returns (state, launches of the graph's
+    solve)."""
+    pal, _, launches_pal, _ = ocp_graph_phase(log, 6, "float64 OCP, tridiag_backend='pallas'",
+                                              ocp, Settings(), card, X0=X0, backend="pallas")
+    pal_iters = int(pal.iteration)
+    u_err_pal = float((pal.U - ref.U).abs().max())
+    log(6, f"float64 OCP, tridiag_backend='pallas': {solve_summary(pal)}; max |U - U_f64| "
+           f"{u_err_pal:.3e}; launches {launches_pal}")
+    check(int(pal.status) == Status.OPTIMAL, "pallas route not OPTIMAL")
+    check(pal_iters <= int(ref.iteration), "pallas route needs more iterations than the scan")
+    check(u_err_pal <= 1e-6, f"pallas U differs from float64 U by {u_err_pal:.3e}")
+    per_solve = len(cr_batches(T_STAGES))
+    check(launches_pal["bgj_flat"] >= per_solve * pal_iters,
+          f"bgj_flat not launched {per_solve} times per iteration on the pallas route")
+    return pal, launches_pal
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3202,11 +3430,7 @@ def main():
     log = Log()
 
     # -- phase 0: the card ------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
     log(0, f"card '{card}'; torch {torch.__version__}, CUDA {torch.version.cuda}, "
            f"{torch.cuda.device_count()} device(s), {torch.cuda.get_device_name(0)}")
@@ -3438,53 +3662,9 @@ def main():
               f"chol_thomas kernels ({P},{c},{k},{r}) disagree with their plain versions: {rels}")
         check(float(ch.triu(1).abs().max()) == 0.0, "chol_thomas_factor: nonzero upper triangle")
 
-    # -- phase 3: the mixed-precision OCP solve ------------------------------
-    mixed = Settings(compute_dtype="float32")
-    ocp, X0 = bench_problem()
-    # first iterations from the start, uncounted: set-up on first use
-    # (cuBLAS handles, allocator growth), then the time of one iteration
-    s0 = ocp_initial_state(ocp, mixed, X0=X0)
-    it_ms = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ocp_perform_iteration(ocp, mixed, s0)
-        torch.cuda.synchronize()
-        it_ms.append(1e3 * (time.perf_counter() - t))
-    it_ms = sorted(it_ms[1:])[1]  # median of the three after the first
-    clear_counts()
-    t = time.perf_counter()
-    out = ocp_solve(ocp, mixed, X0=X0, max_iterations=50)
-    torch.cuda.synchronize()
-    solve_s = time.perf_counter() - t
-    launches = read_counts()
-    iters = int(out.iteration)
-    log(3, f"mixed OCP n={T_STAGES * (NX + NU)}: {solve_summary(out)}; "
-           f"solve {solve_s:.3f}s; one iteration {it_ms:.2f} ms; launches {launches}")
-    check(out.U.shape == (T_STAGES, NU) and out.X.shape == (T_STAGES + 1, NX), "solution shape")
-    check(bool(torch.isfinite(out.U).all() & torch.isfinite(out.X).all()), "non-finite solution")
-    check(launches["bgj_blocked64"] >= iters, "bgj_blocked64 not launched once per iteration")
-    per_solve = len(cr_batches(T_STAGES))
-    check(launches["bgj_flat"] >= per_solve * iters,
-          f"bgj_flat not launched {per_solve} times per iteration")
-    check(all(launches[n] > 0 for n in KERNELS), f"a kernel was not launched: {launches}")
-
-    # -- phase 4: the float64 route as the oracle --------------------------
-    t = time.perf_counter()
-    ref = ocp_solve(ocp, Settings(), X0=X0, max_iterations=50)
-    torch.cuda.synchronize()
-    ref_s = time.perf_counter() - t
-    u_err = float((out.U - ref.U).abs().max())
-    f64 = Settings()
-    s0_64 = ocp_initial_state(ocp, f64, X0=X0)
-    ref_it_ms = host_ms(lambda: ocp_perform_iteration(ocp, f64, s0_64), reps=3)
-    log(4, f"float64 OCP: {solve_summary(ref)}; solve {ref_s:.3f}s; one iteration "
-           f"{ref_it_ms:.2f} ms; max |U - U_f64| {u_err:.3e}")
-    check(int(ref.status) == Status.OPTIMAL, "float64 route not OPTIMAL")
-    check(int(out.status) == Status.OPTIMAL, "mixed route not OPTIMAL")
-    check(float(out.feas_res) <= 1e-6 and float(out.stat_res) <= 1e-6, "mixed residuals above 1e-6")
-    check(iters <= int(ref.iteration) + 3, "mixed route needs more than 3 extra iterations")
-    check(u_err <= 1e-5, f"mixed U differs from float64 U by {u_err:.3e}")
+    # -- phases 3 and 4: the mixed OCP solve and its float64 oracle ----------
+    ocp, X0, out, launches = mixed_ocp_phase(log, card)
+    ref = float64_ocp_phase(log, card, ocp, X0, out)
 
     # -- phase 5: bench.py's structured-KKT system ---------------------------
     rng = np.random.default_rng(0)
@@ -3551,23 +3731,7 @@ def main():
           f"a kernel of the structured-KKT path was not launched: {launches_kkt}")
 
     # -- phase 6: the float64 OCP on float32 kernels ("pallas") -------------
-    clear_counts()
-    t = time.perf_counter()
-    pal = ocp_solve(ocp, f64, X0=X0, max_iterations=50, tridiag_backend="pallas")
-    torch.cuda.synchronize()
-    pal_s = time.perf_counter() - t
-    launches_pal = read_counts()
-    pal_iters = int(pal.iteration)
-    pal_it_ms = host_ms(lambda: ocp_perform_iteration(ocp, f64, s0_64, tridiag_backend="pallas"), reps=3)
-    u_err_pal = float((pal.U - ref.U).abs().max())
-    log(6, f"float64 OCP, tridiag_backend='pallas': {solve_summary(pal)}; solve {pal_s:.3f}s "
-           f"(float64 scan {ref_s:.3f}s); one iteration {pal_it_ms:.2f} ms (float64 scan "
-           f"{ref_it_ms:.2f} ms); max |U - U_f64| {u_err_pal:.3e}; launches {launches_pal}")
-    check(int(pal.status) == Status.OPTIMAL, "pallas route not OPTIMAL")
-    check(pal_iters <= int(ref.iteration), "pallas route needs more iterations than the scan")
-    check(u_err_pal <= 1e-6, f"pallas U differs from float64 U by {u_err_pal:.3e}")
-    check(launches_pal["bgj_flat"] >= per_solve * pal_iters,
-          f"bgj_flat not launched {per_solve} times per iteration on the pallas route")
+    pal, launches_pal = pallas_ocp_phase(log, card, ocp, X0, ref)
 
     # -- phase 7: the dense SLP-EQP solve (no kernel of B1-B6) --------------
     clear_counts()

@@ -36,10 +36,11 @@ from .ocp import (
     ocp_perform_iteration,
     ocp_solve,
 )
-from .iterate import create_iterate
+from .iterate import Iterate, create_iterate, kkt_residuals
+from .merit import Direction, merit_func, merit_linear, merit_quadratic
 from .problem import Func, LSQFunc, Problem
 from .problem_solver import SolverState, initial_state, perform_iteration, solve
-from .scale import Scaling
+from .scale import ScaledProblem, Scaling, derive_scaling
 from .settings import Settings, read_settings_file, read_settings_string
 from .solver import Solver, SolverEvent
 from .sparse import SparseProblem, sparse_solve
@@ -47,6 +48,7 @@ from .types import (
     ActiveState,
     AugJacMethod,
     BfgsSizing,
+    CauchyObjective,
     DualEstimationType,
     HessEval,
     InitialTRChoice,
@@ -68,10 +70,13 @@ __all__ = [
     "BandedProblem",
     "BfgsSizing",
     "BlockStructuredProblem",
+    "CauchyObjective",
+    "Direction",
     "DualEstimationType",
     "Func",
     "HessEval",
     "InitialTRChoice",
+    "Iterate",
     "LPSolver",
     "LSQFunc",
     "Linesearch",
@@ -80,6 +85,7 @@ __all__ = [
     "ParametricCauchy",
     "Polishing",
     "Problem",
+    "ScaledProblem",
     "Scaling",
     "Settings",
     "Solver",
@@ -94,7 +100,12 @@ __all__ = [
     "banded_solve",
     "batched_ocp_solve",
     "create_iterate",
+    "derive_scaling",
     "initial_state",
+    "kkt_residuals",
+    "merit_func",
+    "merit_linear",
+    "merit_quadratic",
     "minimize",
     "ocp_initial_state",
     "ocp_perform_iteration",

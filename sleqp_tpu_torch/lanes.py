@@ -16,10 +16,19 @@ one host read a trip for all lanes.  A branch on one read becomes
 select of its result.  Outside ``vmap`` (one instance) ``lanes_any`` is
 ``bool(flag)`` and a trip's body replaces the state outright, so the
 single-lane path runs the same bodies with the same reads as a plain loop.
+
+Inside ``device_resident()`` nothing is read: ``lanes_any`` answers
+``True`` without looking, so the costly side of a branch always runs and a
+per-lane select keeps what each lane needs, and ``lockstep`` runs exactly
+``max_trips`` masked trips.  ``torch.where`` takes nothing from the side it
+does not select, so the results are the reading loop's bits.  This is the
+form a CUDA graph can capture (``ocp.ocp_solve_jit``): no host read inside
+the body, one read of a flag after it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -27,6 +36,27 @@ import torch
 from torch._C import _functorch
 
 Tensor = torch.Tensor
+
+_resident = False  # inside device_resident()
+
+
+@contextlib.contextmanager
+def device_resident():
+    """Run the lanes' loops and branches without a host read while active:
+    ``lanes_any`` is ``True`` unread, ``lanes_where`` selects per lane,
+    ``lockstep`` runs its ``max_trips`` trips masked (an uncapped loop
+    raises)."""
+    global _resident
+    saved, _resident = _resident, True
+    try:
+        yield
+    finally:
+        _resident = saved
+
+
+def is_device_resident() -> bool:
+    """Whether ``device_resident()`` is active."""
+    return _resident
 
 
 def is_batched(t: Any) -> bool:
@@ -37,9 +67,18 @@ def is_batched(t: Any) -> bool:
 def lanes_any(flag: Any) -> bool:
     """One host read: whether ``flag`` holds on any lane.  Under ``vmap``
     the read is of the lanes' underlying tensor, outside it of ``flag``
-    (a 0-d flag is read as it is, without a reduction to launch)."""
+    (a 0-d flag is read as it is, without a reduction to launch).  Inside
+    ``device_resident()`` a tensor flag is not read and the answer is
+    ``True``."""
     if not isinstance(flag, Tensor):
         return bool(flag)
+    if _resident:
+        return True
+    return read_flag(flag)
+
+
+def read_flag(flag: Tensor) -> bool:
+    """The host read of ``lanes_any``."""
     while _functorch.is_batchedtensor(flag):
         flag = _functorch.get_unwrapped(flag)
     return bool(flag if flag.ndim == 0 else flag.any())
@@ -110,8 +149,10 @@ def vmap_lanes(fn: Callable[..., Any], *trees: Any) -> Any:
 def lanes_where(pred: Any, a, b):
     """``tree_where(pred, a, b)`` after a branch entered on
     ``lanes_any(pred)``: outside ``vmap`` ``pred`` held, so ``a`` is taken
-    as it is."""
-    return tree_where(pred, a, b) if is_batched(pred) else a
+    as it is, unless ``device_resident()`` entered the branch unread."""
+    if is_batched(pred) or (_resident and isinstance(pred, Tensor)):
+        return tree_where(pred, a, b)
+    return a
 
 
 def lockstep(cond: Callable[[Any], Tensor], body: Callable[[Any, int], Any], state: Any,
@@ -121,7 +162,25 @@ def lockstep(cond: Callable[[Any], Tensor], body: Callable[[Any, int], Any], sta
     (``torch.where``, which takes nothing, NaN included, from the side it
     does not select).  ``first`` gives the lanes active on the first trip
     when the caller knows them (``True``: all), which saves that trip's
-    read.  ``trip`` counts from 0 and is the same on every active lane."""
+    read.  ``trip`` counts from 0 and is the same on every active lane.
+
+    Inside ``device_resident()`` every one of the ``max_trips`` trips runs,
+    on one lane as on many: ``state = where(active, body(state, trip),
+    state)`` with ``active`` the first trip's ``first`` or else
+    ``cond(state)``.  A trip after the reading loop would have stopped
+    selects nothing, so the state is the reading loop's.  Without
+    ``max_trips`` it raises, since only a read could end the loop."""
+    if _resident:
+        if max_trips is None:
+            raise ValueError("lockstep: an uncapped loop cannot run without a host read "
+                             "(device_resident() needs max_trips)")
+        for trip in range(max_trips):
+            active = first if trip == 0 and first is not None else cond(state)
+            if isinstance(active, Tensor):
+                state = tree_where(active, body(state, trip), state)
+            elif active:
+                state = body(state, trip)
+        return state
     trip = 0
     active = first
     while max_trips is None or trip < max_trips:

@@ -33,15 +33,22 @@ KKT einsums as bf16 multiplies at the MXU default, so the port is more
 exact there than the reference; the delta-form iteration converges to the
 same float64 tolerances either way.
 
-The JAX package's ``jit``/``while_loop`` become eager PyTorch and Python
-loops: the solve loop, the linesearch and the forward rollout run on the
-host and read a few scalars back from the card each iteration.  The loops
-are ``lanes.lockstep`` bodies and the branches ``lanes.lanes_any`` reads
-with lane selects, so ``batched_ocp_solve`` runs the same iteration under
-``torch.func.vmap`` over a batch of initial states (the reference's
-``vmap`` of ``ocp_solve_jit``), one host read a loop trip or a branch for
-all lanes: an iteration reads the loop's flag, the early stop, the descent
-flag and one Armijo flag a trial, alone or in a batch.
+The reference's solve is one ``jit``-compiled ``lax.while_loop``
+(``ocp_solve_jit``).  Its counterpart here captures one iteration as a CUDA
+graph and replays it, reading one flag a replay: the iteration runs under
+``lanes.device_resident()``, where the early stop and the linesearch's
+branches are per-lane selects and the Armijo loop runs its 30 masked
+trials, so nothing inside it reads the card.  On the CPU the same read-free
+iteration runs eagerly, with the same one read an iteration.
+``ocp_solve_from`` keeps the eager loop that reads as it goes (the loop's
+flag, the early stop, the descent flag and one Armijo flag a trial): it is
+the oracle of the graph, and the path of ``mesh=``, whose collectives
+cannot be captured.  The loops are ``lanes.lockstep`` bodies and the
+branches ``lanes.lanes_any`` reads with lane selects, so
+``batched_ocp_solve`` runs the same iteration under ``torch.func.vmap``
+over a batch of initial states (the reference's ``vmap`` of
+``ocp_solve_jit``), with one host read a loop trip or a branch for all
+lanes.
 
 Entry points run on the card: ``device=None`` means ``"cuda"``, and without
 a CUDA device they raise; pass ``device="cpu"`` to run on the CPU.
@@ -51,16 +58,19 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Callable, Optional
+import time
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch.func import grad, jacrev, vjp, vmap
 from torch.nn.functional import pad
 
 from .kernels._build import require_full_fp32
-from .lanes import is_batched, lanes_any, lockstep, tree_where, vmap_lanes
-from .ops.block_tridiag import (block_tridiag_solve, cholesky_or_nan, pad_identity, pad_zeros,
-                                spike_block_tridiag_solve)
+from .lanes import (device_resident, is_batched, is_device_resident, lanes_any, lockstep,
+                    tree_leaves, tree_map, tree_where, vmap_lanes)
+from .ops import cyclic_reduction, pallas_chol_tridiag, pallas_tridiag
+from .ops.block_tridiag import (block_tridiag_solve, cho_solve, cholesky_or_nan, pad_identity,
+                                pad_zeros, spike_block_tridiag_solve)
 from .ops.cyclic_reduction import batched_gj_inverse, cr_factor, cr_resolve
 from .ops.pallas_tridiag import _spike_chunks, block_tridiag_matvec, block_tridiag_solve_mp
 from .device import resolve_device
@@ -173,6 +183,7 @@ class BlockStructuredProblem:
         if device == self.device:
             return self
         other = copy.copy(self)
+        other.__dict__.pop("_solve_graphs", None)  # graphs are per device
         for name in ("x0", "u_lb", "u_ub", "x_lb", "x_ub"):
             setattr(other, name, getattr(self, name).to(device))
         other.device = device
@@ -433,7 +444,7 @@ def _structured_kkt_core(problem, c, g, G, H, free, reg, mesh=None, mesh_axis="s
         chols = cholesky_or_nan(Hm)
 
         def solve_with(idx, B):
-            return torch.cholesky_solve(B, chols[idx])
+            return cho_solve(B, chols[idx])
 
     hg = solve_with(slice(None), gm[:, :, None])[:, :, 0]  # H^-1 g
     M = solve_with(slice(None, T), Gm.transpose(1, 2))  # H^-1 G^T
@@ -531,20 +542,38 @@ def _stationarity(problem, X, U, g, Jt_lam, lam):
     return stat, r_u, r_x, r
 
 
-def ocp_perform_iteration(
-    problem: BlockStructuredProblem,
-    settings: Settings,
-    state: OCPState,
-    mesh=None,
-    mesh_axis: str = "stages",
-    tridiag_backend: str = "auto",
-) -> OCPState:
-    """One structured SQP iteration (problem_solver/iteration.c:350
-    specialized to the block-structured subproblem layers).  Runs where
-    ``state`` lives; ``mesh``, ``mesh_axis`` and ``tridiag_backend`` as for
-    ``ocp_solve``.  Under ``vmap`` (``batched_ocp_solve``) a lane that
-    stops takes its stopped state while the others step."""
-    problem = problem.to(state.X.device)
+class _Search(NamedTuple):
+    """What an iteration's linesearch and update take from its first part
+    (derivatives, stop test, KKT step, penalty)."""
+
+    X: Tensor
+    U: Tensor
+    dX: Tensor
+    dU: Tensor
+    lam_qp: Tensor
+    penalty: Tensor
+    merit0: Tensor
+    descent: Tensor
+    has_descent: Tensor
+    gd: Tensor
+    dHd: Tensor
+    viol0: Tensor
+    feas_res: Tensor
+    stat_res: Tensor
+    optimal: Tensor
+    stop: Tensor
+
+
+def _stopped(state: OCPState, optimal, feas_res, stat_res) -> OCPState:
+    """The state of a solve that stops here: OPTIMAL or a dead point."""
+    status = torch.where(optimal, int(Status.OPTIMAL), int(Status.ABORT_DEADPOINT))
+    return dataclasses.replace(state, status=status.to(torch.int32), feas_res=feas_res,
+                               stat_res=stat_res)
+
+
+def _search(problem, settings, state, mesh, mesh_axis, tridiag_backend):
+    """An iteration up to its linesearch: a ``_Search``, or the stopped
+    state when every lane stops (one read; none under device_resident)."""
     T, nx, nu = problem.T, problem.nx, problem.nu
     dtype, dev = problem.dtype, problem.device
     X, U = state.X, state.U
@@ -568,17 +597,8 @@ def ocp_perform_iteration(
     optimal = (feas_res <= settings.feas_tol) & (stat_res <= settings.stat_tol)
     deadpoint = state.reg >= REG_MAX
     stop = optimal | deadpoint
-
-    def stopped():
-        status = torch.where(optimal, int(Status.OPTIMAL), int(Status.ABORT_DEADPOINT))
-        return dataclasses.replace(state, status=status.to(torch.int32), feas_res=feas_res,
-                                   stat_res=stat_res)
-
     if not lanes_any(~stop):
-        return stopped()
-    # lanes that stop go on with the others and take their stopped state at
-    # the end
-    stop_state = stopped() if is_batched(stop) else None
+        return _stopped(state, optimal, feas_res, stat_res)
 
     # ---- active-set freeze + structured KKT step -----------------------
     # x_0 fixed, the dummy terminal control frozen; bound-active controls
@@ -617,44 +637,63 @@ def ocp_perform_iteration(
         torch.maximum(10.0 * state.penalty, 2.0 * lam_norm),
     )
 
-    # ---- backtracking linesearch on the l1 merit ------------------------
-    dX = d[:, :nx]  # (T+1, nx); dX[0] == 0
-    dU = d[:T, nx:]
-    gd = (g * d).sum()
-    dHd = torch.einsum("ti,tij,tj->", d, H.to(dtype), d)
+    # ---- what the backtracking linesearch on the l1 merit needs ---------
     viol0 = c.abs().sum()
-    merit0 = problem.total_cost(X, U) + penalty * viol0
+    gd = (g * d).sum()
     # directional derivative of the merit: g.d - penalty * ||c||_1
     descent = penalty * viol0 - gd
+    return _Search(
+        X=X, U=U, dX=d[:, :nx], dU=d[:T, nx:], lam_qp=lam_qp, penalty=penalty,
+        merit0=problem.total_cost(X, U) + penalty * viol0, descent=descent,
+        has_descent=(descent > 0.0) & step_ok, gd=gd,
+        dHd=torch.einsum("ti,tij,tj->", d, H.to(dtype), d), viol0=viol0, feas_res=feas_res,
+        stat_res=stat_res, optimal=optimal, stop=stop,
+    )
 
-    def trial_point(alpha):
-        Xa = X + alpha * dX
-        if problem.has_state_bounds:
-            # clip x_1..x_T into the box; the l1 merit absorbs the
-            # resulting dynamics defects (same treatment as controls)
-            Xa = torch.cat([Xa[:1], torch.clamp(Xa[1:], problem.x_lb, problem.x_ub)], dim=0)
-        Ua = torch.clamp(U + alpha * dU, problem.u_lb, problem.u_ub)
-        return Xa, Ua
+
+def _trial_point(problem, s: _Search, alpha):
+    Xa = s.X + alpha * s.dX  # dX[0] == 0
+    if problem.has_state_bounds:
+        # clip x_1..x_T into the box; the l1 merit absorbs the resulting
+        # dynamics defects (same treatment as controls)
+        Xa = torch.cat([Xa[:1], torch.clamp(Xa[1:], problem.x_lb, problem.x_ub)], dim=0)
+    Ua = torch.clamp(s.U + alpha * s.dU, problem.u_lb, problem.u_ub)
+    return Xa, Ua
+
+
+def _armijo_start(s: _Search):
+    """(alpha, accepted) before the first Armijo trial."""
+    return (torch.ones_like(s.merit0), torch.zeros_like(s.has_descent))
+
+
+def _armijo(problem, settings, s: _Search, carry, trips: int, first=None):
+    """Up to ``trips`` backtracking trials of the Armijo rule from
+    ``carry`` (``lockstep``: one read a trial, or ``trips`` masked trials
+    under device_resident)."""
 
     def trial(carry, trip):
         alpha, _ = carry
-        merit_a = problem.merit(*trial_point(alpha), penalty)
-        armijo = merit_a <= merit0 - settings.linesearch_eta * alpha * descent
+        merit_a = problem.merit(*_trial_point(problem, s, alpha), s.penalty)
+        armijo = merit_a <= s.merit0 - settings.linesearch_eta * alpha * s.descent
         return torch.where(armijo, alpha, settings.linesearch_tau * alpha), armijo
 
-    has_descent = (descent > 0.0) & step_ok
-    carry = (torch.ones((), dtype=dtype, device=dev), torch.zeros((), dtype=torch.bool, device=dev))
-    if lanes_any(has_descent):
-        carry = lockstep(lambda c: has_descent & ~c[1], trial, carry,
-                         max_trips=MAX_LINESEARCH_STEPS, first=has_descent)
-    accepted = carry[1] & has_descent
+    return lockstep(lambda c: s.has_descent & ~c[1], trial, carry, max_trips=trips, first=first)
+
+
+def _finish(problem, settings, state: OCPState, s: _Search, carry) -> OCPState:
+    """An iteration after its linesearch: the step taken, the reduction
+    ratio and the Levenberg update.  A lane that stops (a single lane only
+    under device_resident, where the stop was not read) takes its stopped
+    state."""
+    dtype = problem.dtype
+    accepted = carry[1] & s.has_descent
     alpha = torch.where(accepted, carry[0], 0.0)
 
-    X_new, U_new = trial_point(alpha)
-    merit_trial = problem.merit(X_new, U_new, penalty)
+    X_new, U_new = _trial_point(problem, s, alpha)
+    merit_trial = problem.merit(X_new, U_new, s.penalty)
     # quadratic-model reduction at alpha (merit.c sleqp_merit_quadratic)
-    pred = alpha * (penalty * viol0 - gd) - 0.5 * alpha**2 * dHd
-    actual = merit0 - merit_trial
+    pred = alpha * (s.penalty * s.viol0 - s.gd) - 0.5 * alpha**2 * s.dHd
+    actual = s.merit0 - merit_trial
     eps10 = 10.0 * torch.finfo(dtype).eps
     tiny = (pred.abs() <= eps10) & (actual.abs() <= eps10)
     ratio = torch.where(tiny, 1.0, actual / torch.where(pred == 0.0, 1.0, pred))
@@ -666,26 +705,52 @@ def ocp_perform_iteration(
         torch.where(ratio >= 0.3, torch.clamp(state.reg / 2.0, min=REG_MIN), state.reg),
     )
     reg_reject = torch.clamp(torch.clamp(10.0 * state.reg, min=REG_FAIL), max=REG_MAX)
-    X_next = torch.where(accepted, X_new, X)
-    U_next = torch.where(accepted, U_new, U)
+    X_next = torch.where(accepted, X_new, s.X)
+    U_next = torch.where(accepted, U_new, s.U)
 
     out = OCPState(
         X=X_next,
         U=U_next,
-        lam=lam_qp,
-        penalty=penalty,
+        lam=s.lam_qp,
+        penalty=s.penalty,
         reg=torch.where(accepted, reg_accept, reg_reject),
         iteration=state.iteration + 1,
-        status=torch.tensor(int(Status.RUNNING), dtype=torch.int32, device=dev),
+        status=torch.full((), int(Status.RUNNING), dtype=torch.int32, device=problem.device),
         num_accepted=state.num_accepted + accepted.to(torch.int32),
         num_rejected=state.num_rejected + (~accepted).to(torch.int32),
         obj_val=problem.total_cost(X_next, U_next),
-        feas_res=feas_res,
-        stat_res=stat_res,
+        feas_res=s.feas_res,
+        stat_res=s.stat_res,
         last_ratio=ratio,
         last_alpha=alpha,
     )
-    return out if stop_state is None else tree_where(stop, stop_state, out)
+    if not (is_batched(s.stop) or is_device_resident()):
+        return out  # a single lane that read its stop flag runs on
+    # lanes that stop go on with the others and take their stopped state
+    return tree_where(s.stop, _stopped(state, s.optimal, s.feas_res, s.stat_res), out)
+
+
+def ocp_perform_iteration(
+    problem: BlockStructuredProblem,
+    settings: Settings,
+    state: OCPState,
+    mesh=None,
+    mesh_axis: str = "stages",
+    tridiag_backend: str = "auto",
+) -> OCPState:
+    """One structured SQP iteration (problem_solver/iteration.c:350
+    specialized to the block-structured subproblem layers).  Runs where
+    ``state`` lives; ``mesh``, ``mesh_axis`` and ``tridiag_backend`` as for
+    ``ocp_solve``.  Under ``vmap`` (``batched_ocp_solve``) a lane that
+    stops takes its stopped state while the others step."""
+    problem = problem.to(state.X.device)
+    s = _search(problem, settings, state, mesh, mesh_axis, tridiag_backend)
+    if isinstance(s, OCPState):
+        return s
+    carry = _armijo_start(s)
+    if lanes_any(s.has_descent):
+        carry = _armijo(problem, settings, s, carry, MAX_LINESEARCH_STEPS, first=s.has_descent)
+    return _finish(problem, settings, state, s, carry)
 
 
 def ocp_solve_from(
@@ -698,9 +763,12 @@ def ocp_solve_from(
     tridiag_backend: str = "auto",
 ) -> OCPState:
     """Iterate from ``state`` until OPTIMAL, a dead point or
-    ``max_iterations`` (then ABORT_ITER), as ``ocp_solve_jit``'s
-    ``while_loop`` does (solve.c:95-252): one host read a trip.  Under
-    ``vmap`` the lanes iterate in lockstep until every one has stopped."""
+    ``max_iterations`` (then ABORT_ITER), eagerly, reading as it goes: the
+    loop's flag a trip, and the early stop, the descent flag and each
+    Armijo trial's flag inside an iteration.  It is the oracle of
+    ``ocp_solve_jit`` (the same iteration, the same bits) and the loop of
+    ``mesh=``.  Under ``vmap`` the lanes iterate in lockstep until every one
+    has stopped."""
 
     def running(s):
         return (s.status == int(Status.RUNNING)) & (s.iteration < max_iterations)
@@ -714,6 +782,279 @@ def ocp_solve_from(
     return dataclasses.replace(state, status=status.to(torch.int32))
 
 
+# ---- the solve as one device program (ocp_solve_jit) ---------------------
+
+
+def _running(state: OCPState, max_iterations: Tensor) -> Tensor:
+    return (state.status == int(Status.RUNNING)) & (state.iteration < max_iterations)
+
+
+# The Armijo trials of ocp_solve_jit's iteration: the first few inside the
+# iteration's graph, the rest, while a lane still searches, in blocks of
+# masked trials, one read a block.  Together at most MAX_LINESEARCH_STEPS.
+GRAPH_TRIALS = 4
+TRIAL_BLOCK = 13
+_BLOCKS, _LEFT = divmod(MAX_LINESEARCH_STEPS - GRAPH_TRIALS, TRIAL_BLOCK)
+assert _LEFT == 0, "the trial blocks must end at the linesearch's cap"
+
+_LAUNCHES = (cyclic_reduction.LAUNCHES, pallas_tridiag.LAUNCHES, pallas_chol_tridiag.LAUNCHES)
+
+
+def _programs(problem, settings, tridiag_backend, batched):
+    """The three read-free bodies of ``ocp_solve_jit``'s loop, on a dict of
+    buffers (``state``, ``max_it``; ``search``, ``carry`` and ``run`` of an
+    iteration whose linesearch goes on; ``flag``): each returns the buffers
+    it writes.  ``iterate``: one iteration with its first GRAPH_TRIALS
+    Armijo trials, for every lane that runs; flag bit 0: a lane still runs,
+    bit 1: a lane that does not stop here still searches, and then the
+    state is left as it was and the iteration is finished by ``search``
+    (TRIAL_BLOCK more trials; bit 1 as before) and ``finish`` (bit 0 as
+    before).  With ``batched`` the buffers have a lane dimension first and
+    the bodies run under vmap."""
+
+    def lanes(fn, *trees):
+        return vmap_lanes(fn, *trees) if batched else fn(*trees)
+
+    def start(state):
+        with device_resident():
+            s = _search(problem, settings, state, None, "stages", tridiag_backend)
+            return s, _armijo(problem, settings, s, _armijo_start(s), GRAPH_TRIALS,
+                              first=s.has_descent)
+
+    def finish_lane(state, s, carry, run):
+        with device_resident():
+            out = _finish(problem, settings, state, s, carry)
+        return tree_where(run, out, state)
+
+    def flags(running=None, searching=None):
+        bits = [f.any().to(torch.int32) * w for f, w in ((running, 1), (searching, 2))
+                if f is not None]
+        return bits[0] if len(bits) == 1 else bits[0] + bits[1]
+
+    def iterate(b):
+        state, max_it = b["state"], b["max_it"]
+        run = _running(state, max_it)
+        s, carry = lanes(start, state)
+        out = lanes(finish_lane, state, s, carry, run)
+        searching = run & ~s.stop & s.has_descent & ~carry[1]
+        # an iteration whose linesearch goes on keeps every lane's state
+        out = tree_where(searching.any(), state, out)
+        return dict(state=out, search=s, carry=carry, run=run,
+                    flag=flags(_running(out, max_it), searching))
+
+    def search(b):
+        s, run = b["search"], b["run"]
+        with device_resident():
+            carry = lanes(lambda s, c: _armijo(problem, settings, s, c, TRIAL_BLOCK), s,
+                          b["carry"])
+        return dict(carry=carry, flag=flags(searching=run & ~s.stop & s.has_descent & ~carry[1]))
+
+    def finish(b):
+        out = lanes(finish_lane, b["state"], b["search"], b["carry"], b["run"])
+        return dict(state=out, flag=flags(running=_running(out, b["max_it"])))
+
+    return iterate, search, finish
+
+
+def _on_graphs(device: torch.device) -> bool:
+    """Whether ``ocp_solve_jit``'s loop runs as CUDA graphs on ``device``."""
+    return device.type == "cuda"
+
+
+def _captured(record: Callable[[], None]) -> "torch.cuda.CUDAGraph":
+    """``record()`` captured as a CUDA graph."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        record()
+    return graph
+
+
+class IterationGraph:
+    """``ocp_solve_jit``'s loop on one device: three read-free programs
+    (``_programs``) on static buffers, replayed as CUDA graphs on the card
+    and run eagerly on the CPU, reading the 0-d ``flag`` buffer once after
+    each.  An iteration is one ``iterate`` and one read, unless a lane's
+    linesearch outlasts GRAPH_TRIALS trials: then ``search`` (a read a
+    block of TRIAL_BLOCK trials) and ``finish`` (a read) end it.
+
+    On CUDA each program runs once eagerly on a side stream, which builds
+    the kernels at their first launch, creates the cuBLAS and cuSOLVER
+    handles and grows the allocator; then it is captured, under
+    ``torch.cuda.set_sync_debug_mode("error")`` so that a host
+    synchronization inside it raises, and ends by copying what it writes
+    into the buffers.  Kernel wrappers count launches when they are called,
+    so the launches made during a capture are taken out of ``LAUNCHES`` and
+    added back once a replay.  ``warmup_s``, ``capture_s`` (capture and
+    instantiation of the three), ``reserved_bytes`` (device memory the
+    allocator reserved during the captures: the graphs' pools),
+    ``launches`` (an ``iterate`` replay's, by kernel), ``replays`` (by
+    program) and ``reads`` (over every run) describe it.  A failure raises;
+    nothing falls back to the eager loop.
+    """
+
+    def __init__(self, problem, settings, tridiag_backend, batched, state0, max_iterations):
+        dev = state0.X.device
+        self.cuda = _on_graphs(dev)
+        bodies = _programs(problem, settings, tridiag_backend, batched)
+        self.names = ("iterate", "search", "finish")
+        self.bufs = dict(state=tree_map(torch.clone, state0),
+                         max_it=torch.full((), max_iterations, dtype=torch.int32, device=dev))
+        self.replays = dict.fromkeys(self.names, 0)
+        self.reads = 0
+        self.warmup_s = self.capture_s = 0.0
+        self.reserved_bytes = 0
+        self.launches = dict.fromkeys(self.names, None)
+        if not self.cuda:
+            self.programs = dict(zip(self.names, bodies))
+            return
+        # warm-up: ``iterate`` once gives the other buffers their shapes
+        stream = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        t = time.perf_counter()
+        with torch.cuda.stream(side):
+            first = bodies[0](self.bufs)
+            for name in ("search", "carry", "run", "flag"):
+                self.bufs[name] = tree_map(torch.clone, first[name])
+            for body in bodies[1:]:
+                body(self.bufs)
+        stream.wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.warmup_s = time.perf_counter() - t
+        torch.cuda.empty_cache()  # as a capture does first: the pools' growth remains
+        reserved = torch.cuda.memory_reserved(dev)
+        t = time.perf_counter()
+        self.programs = {name: self._capture(name, body) for name, body in zip(self.names, bodies)}
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t
+        self.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def _capture(self, name, body):
+        def record():
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for buf, value in body(self.bufs).items():
+                    for dst, src in zip(tree_leaves(self.bufs[buf]), tree_leaves(value)):
+                        dst.copy_(src)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        before = [dict(counts) for counts in _LAUNCHES]
+        try:
+            graph = _captured(record)
+        finally:
+            launches = {}
+            for counts, was in zip(_LAUNCHES, before):
+                launches.update({k: counts[k] - was[k] for k in counts})
+                counts.update(was)
+        self.launches[name] = launches
+        return graph
+
+    def load(self, state0: Any, max_iterations: int) -> None:
+        """Set the state buffers to ``state0`` and the iteration limit."""
+        if self.cuda:
+            for dst, src in zip(tree_leaves(self.bufs["state"]), tree_leaves(state0)):
+                dst.copy_(src)
+            self.bufs["max_it"].fill_(max_iterations)
+        else:
+            self.bufs["state"] = state0
+            self.bufs["max_it"] = torch.full((), max_iterations, dtype=torch.int32,
+                                             device=state0.X.device)
+
+    def replay(self, name: str = "iterate") -> None:
+        """One run of a program on the buffers, its launches counted."""
+        self.replays[name] += 1
+        if not self.cuda:
+            self.bufs.update(self.programs[name](self.bufs))
+            return
+        self.programs[name].replay()
+        for counts in _LAUNCHES:
+            for k in counts:
+                counts[k] += self.launches[name][k]
+
+    def flag(self) -> int:
+        """The one host read after a program."""
+        self.reads += 1
+        return int(self.bufs["flag"])
+
+    def run(self, state0: Any, max_iterations: int) -> Any:
+        """Iterate from ``state0`` while a lane runs; returns the final
+        state (a copy of the buffers on CUDA)."""
+        self.load(state0, max_iterations)
+        while True:
+            self.replay("iterate")
+            flag = self.flag()
+            if flag & 2:
+                for _ in range(_BLOCKS):
+                    self.replay("search")
+                    if not self.flag() & 2:
+                        break
+                self.replay("finish")
+                flag = self.flag()
+            if not flag & 1:
+                break
+        state = self.bufs["state"]
+        return tree_map(torch.clone, state) if self.cuda else state
+
+
+def _cache_key(settings, tridiag_backend, batched, state0):
+    return (settings, tridiag_backend, batched, state0.X.device,
+            tuple((tuple(t.shape), t.dtype) for t in tree_leaves(state0)))
+
+
+def iteration_graph(problem: BlockStructuredProblem, settings: Settings, state0: Any,
+                    max_iterations: int = 100, tridiag_backend: str = "auto",
+                    batched: bool = False) -> IterationGraph:
+    """The ``IterationGraph`` of ``ocp_solve_jit`` for this problem,
+    settings, backend and the shapes, dtypes and device of ``state0`` (with
+    ``batched`` a lane dimension first), made (on CUDA captured from
+    ``state0``) at the first call and cached on the problem."""
+    problem = problem.to(state0.X.device)
+    graphs = problem.__dict__.setdefault("_solve_graphs", {})
+    key = _cache_key(settings, tridiag_backend, batched, state0)
+    if key not in graphs:
+        graphs[key] = IterationGraph(problem, settings, tridiag_backend, batched, state0,
+                                     max_iterations)
+    return graphs[key]
+
+
+def _solve_loop(problem, settings, state0, max_iterations, tridiag_backend, batched):
+    """``ocp_solve_jit``'s loop, then the reference's ABORT_ITER rule."""
+    state = iteration_graph(problem, settings, state0, max_iterations, tridiag_backend,
+                            batched).run(state0, max_iterations)
+    status = torch.where(state.status == int(Status.RUNNING), int(Status.ABORT_ITER), state.status)
+    return dataclasses.replace(state, status=status.to(torch.int32))
+
+
+def ocp_solve_jit(
+    problem: BlockStructuredProblem,
+    settings: Settings,
+    state0: OCPState,
+    max_iterations: int,
+    mesh=None,
+    mesh_axis: str = "stages",
+    tridiag_backend: str = "auto",
+) -> OCPState:
+    """The whole solve from ``state0`` as one device program
+    (``sleqp_tpu/ocp.py::ocp_solve_jit``, solve.c:95-252): on CUDA a CUDA
+    graph of one read-free iteration (``IterationGraph``, cached on the
+    problem: a second solve of the same problem, settings, backend and
+    shapes replays without a new capture), replayed while the flag it
+    leaves, read once a replay, says the solve runs; on the CPU the same
+    iteration eagerly, with the same one read an iteration.  The result is
+    ``ocp_solve_from``'s, bit for bit.  A capture that fails raises.
+
+    ``mesh`` raises: the collectives of ``parallel/collectives.py`` stage
+    through host memory and cannot be captured (``ocp_solve(mesh=)`` runs
+    ``ocp_solve_from``).  ``mesh_axis`` is kept for the reference's
+    signature."""
+    if mesh is not None:
+        raise ValueError("ocp_solve_jit: mesh= is not capturable (the collectives stage "
+                         "through host memory); ocp_solve(mesh=) runs ocp_solve_from")
+    return _solve_loop(problem, settings, state0, max_iterations, tridiag_backend, False)
+
+
 def ocp_solve(
     problem: BlockStructuredProblem,
     settings: Optional[Settings] = None,
@@ -725,8 +1066,9 @@ def ocp_solve(
     tridiag_backend: str = "auto",
     device: Any = None,
 ) -> OCPState:
-    """Initialize (``ocp_initial_state``) and iterate (``ocp_solve_from``).
-    Runs on ``device``: ``None`` means CUDA, which raises when no CUDA
+    """Initialize (``ocp_initial_state``) and iterate: ``ocp_solve_jit``
+    without ``mesh``, as the reference does, and ``ocp_solve_from`` with
+    it.  Runs on ``device``: ``None`` means CUDA, which raises when no CUDA
     device is present.
 
     ``tridiag_backend`` picks the solve of the dual Schur complement S:
@@ -748,6 +1090,9 @@ def ocp_solve(
         settings = Settings()
     problem = problem.to(resolve_device(device))
     state = ocp_initial_state(problem, settings, U0=U0, X0=X0, device=problem.device)
+    if mesh is None:
+        return ocp_solve_jit(problem, settings, state, max_iterations,
+                             tridiag_backend=tridiag_backend)
     return ocp_solve_from(problem, settings, state, max_iterations, mesh, mesh_axis,
                           tridiag_backend)
 
@@ -766,19 +1111,16 @@ def batched_ocp_solve(
     from ``ocp_initial_state(x0=...)``.  Returns an ``OCPState`` with the
     lane dimension first in every tensor.
 
-    The single-lane iteration runs under ``torch.func.vmap``; all lanes
-    advance together, a stopped lane frozen while the others go on, with
-    one host read a loop trip or a branch for all lanes.  The batched
+    The single-lane iteration runs under ``torch.func.vmap`` inside
+    ``ocp_solve_jit``'s loop (a CUDA graph of the vmapped iteration on the
+    card): all lanes advance together, a stopped lane frozen while the
+    others go on, with one host read a trip for all lanes.  The batched
     inverses of the float32 route take every lane's blocks in one launch
     (``ops/cyclic_reduction.py``).  ``device=None`` means CUDA."""
     problem = problem.to(resolve_device(device))
     x0 = torch.as_tensor(x0_batch, dtype=problem.dtype, device=problem.device)
     if x0.ndim != 2 or x0.shape[1] != problem.nx:
         raise ValueError(f"x0_batch must be (B, {problem.nx}), got {tuple(x0.shape)}")
-
-    def one(x):
-        state = ocp_initial_state(problem, settings, x0=x, device=problem.device)
-        return ocp_solve_from(problem, settings, state, max_iterations,
-                              tridiag_backend=tridiag_backend)
-
-    return vmap_lanes(one, x0)
+    states0 = vmap_lanes(
+        lambda x: ocp_initial_state(problem, settings, x0=x, device=problem.device), x0)
+    return _solve_loop(problem, settings, states0, max_iterations, tridiag_backend, True)

@@ -32,6 +32,17 @@ def cholesky_or_nan(A: Tensor) -> Tensor:
     return torch.where(bad, torch.full_like(chol, float("nan")), chol)
 
 
+def cho_solve(B: Tensor, chol: Tensor) -> Tensor:
+    """``torch.cholesky_solve(B, chol)`` (lower factor) as its two
+    substitutions, L y = B and L^T x = y.  On the CPU the bits are
+    ``cholesky_solve``'s (LAPACK's potrs is these two trsm); on CUDA a batch
+    goes to cuBLAS's batched trsm, which a CUDA graph captures, where
+    ``cholesky_solve`` would call MAGMA's batched potrs, which allocates
+    device memory inside the call and cannot be captured."""
+    y = torch.linalg.solve_triangular(chol, B, upper=False)
+    return torch.linalg.solve_triangular(chol.mT, y, upper=True)
+
+
 def block_thomas_factor(D: Tensor, L: Tensor) -> Tensor:
     """Factor an SPD block-tridiagonal matrix.
 
@@ -43,7 +54,7 @@ def block_thomas_factor(D: Tensor, L: Tensor) -> Tensor:
     chols = [chol]
     for i in range(1, D.shape[-3]):
         L_im1 = L[..., i - 1, :, :]
-        W = torch.cholesky_solve(L_im1.mT, chol)  # C^{-1} L^T
+        W = cho_solve(L_im1.mT, chol)  # C^{-1} L^T
         chol = cholesky_or_nan(D[..., i, :, :] - L_im1 @ W)
         chols.append(chol)
     return torch.stack(chols, dim=-3)
@@ -57,10 +68,10 @@ def block_thomas_solve(chols: Tensor, L: Tensor, b: Tensor) -> Tensor:
         b = b[..., None]
     N = b.shape[-3]
     # forward: ys_i = C_i^{-1} (b_i - L_{i-1} ys_{i-1})
-    y = torch.cholesky_solve(b[..., 0, :, :], chols[..., 0, :, :])
+    y = cho_solve(b[..., 0, :, :], chols[..., 0, :, :])
     ys = [y]
     for i in range(1, N):
-        y = torch.cholesky_solve(
+        y = cho_solve(
             b[..., i, :, :] - L[..., i - 1, :, :] @ y, chols[..., i, :, :]
         )
         ys.append(y)
@@ -68,7 +79,7 @@ def block_thomas_solve(chols: Tensor, L: Tensor, b: Tensor) -> Tensor:
     x = ys[-1]
     xs = [x]
     for i in range(N - 2, -1, -1):
-        x = ys[i] - torch.cholesky_solve(L[..., i, :, :].mT @ x, chols[..., i, :, :])
+        x = ys[i] - cho_solve(L[..., i, :, :].mT @ x, chols[..., i, :, :])
         xs.append(x)
     x = torch.stack(xs[::-1], dim=-3)
     return x[..., 0] if squeeze else x
@@ -129,10 +140,12 @@ def schur_factor(D: Tensor, L: Tensor, num_chunks: int) -> dict:
     zero = torch.zeros((1, k, k), dtype=D.dtype, device=D.device)
     F_pad = torch.cat([zero, F], dim=0)  # chunk j's left separator j-1
     E_pad = torch.cat([E, zero], dim=0)  # chunk j's right separator j
-    rhs_left = torch.zeros((P, nin, k, k), dtype=D.dtype, device=D.device)
-    rhs_left[:, 0] = F_pad
-    rhs_right = torch.zeros_like(rhs_left)
-    rhs_right[:, -1] = E_pad.mT
+    # [F at first] and [E^T at last] of each chunk, assembled by
+    # concatenation (no index write into a buffer, which vmap would refuse
+    # for a lane's values)
+    rest = torch.zeros((P, nin - 1, k, k), dtype=D.dtype, device=D.device)
+    rhs_left = torch.cat([F_pad[:, None], rest], dim=1)
+    rhs_right = torch.cat([rest, E_pad.mT[:, None]], dim=1)
     VL = block_thomas_solve(chols_ch, L_ch, rhs_left)  # (P, nin, k, k)
     VR = block_thomas_solve(chols_ch, L_ch, rhs_right)
 
@@ -185,9 +198,8 @@ def schur_resolve(fact: dict, b: Tensor) -> Tensor:
         - torch.einsum("pnab,pbr->pnar", fact["VL"], s_left)
         - torch.einsum("pnab,pbr->pnar", fact["VR"], s_right)
     )
-    x = torch.zeros_like(b)
-    x[ids.reshape(-1)] = x_ch.reshape((-1,) + b.shape[1:])
-    x[sep_idx] = s
+    # [chunk_0 | sep_0 | chunk_1 | ... | chunk_{P-1}] by concatenation
+    x = torch.cat([torch.cat([x_ch[:-1], s[:, None]], dim=1).flatten(0, 1), x_ch[-1]], dim=0)
     return x[..., 0] if squeeze else x
 
 
