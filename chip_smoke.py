@@ -75,11 +75,16 @@ run from a checkout of the repository, on a machine with a CUDA device and
     (``MIXED_LEFT_OUT`` names the other ten), each through the end gate
     against ``artifacts/suite_all_{f64,mixed}_r5.csv``;
 12. the banded structured path (``banded.py``): ``bench.py``'s banded
-    problem (n = 10 240) on both routes on the card and on the CPU, held to
-    the JAX package's iterations; the suite's three banded rows from phase
-    11's sweep, held to their r5 rows; the PDLP Cauchy LP on the banded
-    operator (N_b = 160, k = 64, q = 8) on the card and on the CPU; ms per
-    iteration, host reads per iteration and ms per KKT solve;
+    problem (n = 10 240) on both routes through ``banded_solve_jit`` (CUDA
+    graphs) on the card, every field bit for bit the eager loop
+    (``banded_solve_from``) on the card, and on the CPU, held to the JAX
+    package's iterations; the locally infeasible chain, which enters
+    restoration, the same way; the suite's three banded rows from phase
+    11's sweep (through the graphs), held to their r5 rows; the PDLP Cauchy
+    LP on the banded operator (N_b = 160, k = 64, q = 8) on the card and on
+    the CPU; ms an iteration by replay and eager, warm-up and capture
+    seconds, the captures' memory, host reads a trip, kernels and idle
+    share of a traced replay, and ms per KKT solve of the eager loop;
 13. the matrix-free sparse path (``sparse.py``): the scattered problem of
     ``tests/test_sparse.py`` at n = 5e4 on both routes on the card and on
     the float64 route on the CPU, and the first three iterations of HS71
@@ -219,6 +224,7 @@ from sleqp_tpu_torch.ops import lsqr as lsqr_module  # noqa: E402
 from sleqp_tpu_torch.ops import pdlp as pdlp_module  # noqa: E402
 from sleqp_tpu_torch.ops import simplex as simplex_module  # noqa: E402
 from sleqp_tpu_torch.restoration import solve_with_restoration  # noqa: E402
+from sleqp_tpu_torch.harness import driver as harness_driver  # noqa: E402
 from sleqp_tpu_torch.harness.driver import ALL_PROBLEMS  # noqa: E402
 from sleqp_tpu_torch.harness.driver import get_problem as harness_problem  # noqa: E402
 from sleqp_tpu_torch.ops.block_tridiag import block_tridiag_solve  # noqa: E402
@@ -639,7 +645,7 @@ def ocp_graph_phase(log, phase, tag, ocp, settings, card, X0=None, backend="auto
     counts_equal = all(torch.equal(getattr(out, f), getattr(ref, f))
                        for f in ("status", "iteration", "num_accepted", "num_rejected"))
     graph.load(state0, max_iterations)
-    replay_ms = event_ms(graph.replay)
+    replay_ms = event_ms(lambda: graph.replay("iterate"))
     search_ms = event_ms(lambda: graph.replay("search"))
     if batched:
         step = lambda: vmap_lanes(  # noqa: E731
@@ -649,7 +655,7 @@ def ocp_graph_phase(log, phase, tag, ocp, settings, card, X0=None, backend="auto
                                              tridiag_backend=backend)
     eager_ms = event_ms(step)
     graph.load(state0, max_iterations)
-    kernels, wall, busy = traced(graph.replay)
+    kernels, wall, busy = traced(lambda: graph.replay("iterate"))
     trial_ms = search_ms / ocp_module.TRIAL_BLOCK
     inside = ocp_module.GRAPH_TRIALS * trial_ms / replay_ms
     all_in = (ocp_module.MAX_LINESEARCH_STEPS * trial_ms
@@ -1205,18 +1211,40 @@ def load_suite_tool():
     return module
 
 
+class banded_row_programs:
+    """Within the block, the programs (``graphs.Programs``) of each banded
+    row the suite driver solves, by name: ``rows``."""
+
+    def __enter__(self):
+        self.real = harness_driver._run_banded_problem
+        self.rows = {}
+
+        def wrapped(name, problem, *args, **kwargs):
+            out = self.real(name, problem, *args, **kwargs)
+            self.rows[name] = list(problem.__dict__.get("_solve_graphs", {}).values())
+            return out
+
+        harness_driver._run_banded_problem = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        harness_driver._run_banded_problem = self.real
+
+
 def suite_phase(log, card="cuda", names=None):
     """Phase 11: the suite sweep on the card (``names``: a subset, to
-    rehearse it); returns {route: {name: CSV fields}}."""
+    rehearse it); returns ({route: {name: CSV fields}}, {route: {name:
+    the programs of each banded row's solve}})."""
     tool = load_suite_tool()
-    swept = {}
+    swept, row_programs = {}, {}
     for route in ("float64", "mixed"):
         oracle = tool.read_rows(tool.ORACLES[route])
         rows_of = [n for n in oracle if n in ALL_PROBLEMS and n in (names or ALL_PROBLEMS)
                    and ((route == "float64" and n not in FLOAT64_LEFT_OUT)
                         or (route == "mixed" and oracle[n][3] == "optimal"
                             and n not in MIXED_LEFT_OUT))]
-        rows, result, seconds = tool.run(route, card, rows_of, verbose=False)
+        with banded_row_programs() as recorded:
+            rows, result, seconds = tool.run(route, card, rows_of, verbose=False)
         log(11, f"suite {route} on the card: {len(rows)} rows in {seconds:.1f} s, "
                 f"{result['iterations']} iterations (r5 {result['iterations_r5']}), "
                 f"{1e3 * seconds / max(result['iterations'], 1):.1f} ms per iteration; solved "
@@ -1229,18 +1257,20 @@ def suite_phase(log, card="cuda", names=None):
             f"{f[0]} {float(f[9]):.1f} s ({f[8]} iterations)" for f in slowest))
         check(result["ok"], f"the {route} suite on the card fails the end gate")
         swept[route] = rows
-    return swept
-
+        row_programs[route] = recorded.rows
+    return swept, row_programs
 
 
 # Phase 12: the banded structured path (banded.py).  bench.py's banded
-# problem (bench.py:441-460) on both routes, on the card and on the CPU,
+# problem (bench.py:441-460) on both routes through banded_solve_jit (CUDA
+# graphs) held bit for bit to the eager loop on the card, and on the CPU,
 # its iterations held to the JAX package's on the CPU
 # (tools/large_reference.py banded: OPTIMAL in 9 on both routes; the TPU
-# run of r5 took 9, BENCH_r05.json); the suite's three banded rows from
-# phase 11's sweep, held to the r5 CSVs; and the PDLP Cauchy LP of
-# tests/test_banded.py::test_banded_cauchy_extraction_large on the card
-# and on the CPU.
+# run of r5 took 9, BENCH_r05.json); the locally infeasible chain of
+# tests/test_banded.py, which enters restoration, the same way; the suite's
+# three banded rows from phase 11's sweep, held to the r5 CSVs; and the
+# PDLP Cauchy LP of tests/test_banded.py::test_banded_cauchy_extraction_large
+# on the card and on the CPU.
 BANDED_JAX_ITERATIONS = {"float64": 9, "mixed": 9}
 LARGE_ROWS = ("bandnl16k", "bandqp10k", "bandrosen10k")
 ROUTE_SETTINGS = {"float64": "same", "mixed": "float32"}
@@ -1261,6 +1291,16 @@ def banded_bench_problem(device, N=160, k=64, q=16):
 
     return BandedProblem(obj, N, k, cons_block=cons, cons_per_block=q, var_lb=-2.0, var_ub=2.0,
                          cons_lb=-0.3, cons_ub=0.3, device=device)
+
+
+def banded_infeasible_problem(device):
+    """tests/test_banded.py::test_banded_locally_infeasible_certificate's
+    chain (N_b = 4, k = 1): the optimality loop hands over to restoration,
+    whose Gauss-Newton steps end in the local-infeasibility certificate;
+    most linesearches spend all 30 trials."""
+    return BandedProblem(lambda x, t: torch.sum(x**2), 4, 1, cons_block=lambda a, b, t: b - a,
+                         cons_per_block=1, var_lb=0.0, var_ub=1.0, cons_lb=0.5, cons_ub=0.5,
+                         device=device)
 
 
 def cauchy_extraction_problem(device, N=160, k=64, q=8):
@@ -1318,27 +1358,96 @@ def measured_solve(run, device, module, kkt_name):
     return out, seconds, reads, kkt.seconds
 
 
-def banded_phase(log, card="cuda", swept=None):
-    """Phase 12 (``card="cpu"`` rehearses it; ``swept``: phase 11's rows)."""
+BANDED_FIELDS = tuple(f.name for f in dataclasses.fields(banded.BandedState))
+
+
+def banded_graph_run(log, tag, problem, settings, card, max_iterations=100, one_read=True):
+    """A banded solve from zeros through ``banded_solve_jit`` (CUDA graphs)
+    on the card, held to ``banded_solve_from`` (the eager loop) on the same
+    card: the same status, iterations and step counts, every field bit for
+    bit.  Logs ms an iteration by replay and by the eager loop (CUDA
+    events, median of 5, from the start), solve seconds both ways, the
+    warm-up and capture seconds, the memory the captures reserved, host
+    reads (with ``one_read`` one before the loop and one a trip: no
+    linesearch outlasted the trials in the iteration's graph), the kernels
+    and idle share of one traced replay, the Armijo trials' share of a
+    replay and, on the eager loop only (its timer synchronizes), ms per KKT
+    solve.  Returns (graph state, eager state, programs)."""
+    zeros = torch.zeros((problem.N_b, problem.k), dtype=problem.dtype, device=problem.device)
+    state0 = banded.banded_initial_state(problem, settings, zeros)
+    jit = functools.partial(banded.banded_solve_jit, problem, settings, state0, max_iterations)
+    out, first_s = timed(jit, card)
+    graphs = banded.solve_graphs(problem, settings, state0)
+    replays, graph_reads = dict(graphs.replays), graphs.reads
+    reads, (again, solve_s) = count_host_reads(lambda: timed(jit, card))
+    trips = {name: graphs.replays[name] - replays[name] for name in graphs.replays}
+    iterations_run = trips["opt.iterate"] + trips["rest.iterate"]
+    graph_reads = graphs.reads - graph_reads
+    check(all(same_bits(getattr(again, f), getattr(out, f)) for f in BANDED_FIELDS),
+          f"{tag}: a second graph solve parts from the first")
+    ref, eager_s, eager_reads, kkt = measured_solve(
+        functools.partial(banded.banded_solve_from, problem, settings, state0, max_iterations),
+        card, banded, "_kkt_solve")
+    parts = state_parts(out, ref, BANDED_FIELDS)
+    counts_equal = all(torch.equal(getattr(out, f), getattr(ref, f))
+                       for f in ("status", "iteration", "num_accepted", "num_rejected", "phase"))
+    graphs.load(state0, max_iterations)
+    replay_ms = event_ms(lambda: graphs.replay("opt.iterate"))
+    search_ms = event_ms(lambda: graphs.replay("opt.search"))
+    eager_ms = event_ms(lambda: banded.banded_perform_iteration(problem, settings, state0))
+    graphs.load(state0, max_iterations)
+    kernels, wall, busy = traced(lambda: graphs.replay("opt.iterate"))
+    trial_ms = search_ms / banded.TRIAL_BLOCK
+    inside = banded.GRAPH_TRIALS * trial_ms / replay_ms
+    kkt_ms = 1e3 * sum(kkt) / max(len(kkt), 1) if kkt else float("nan")
+    iterations = int(out.iteration)
+    log(12, f"{tag} through banded_solve_jit (CUDA graphs) against banded_solve_from on the "
+            f"card: {solve_summary(out)}; replays {trips}; captured in order "
+            f"{list(graphs.programs)}; ms an iteration: replay {replay_ms:.3f}, eager "
+            f"{eager_ms:.3f} (CUDA events, median of 5); solve s: graph {solve_s:.3f} (first "
+            f"call {first_s:.3f}: warm-up {graphs.warmup_s:.3f}, capture and instantiation "
+            f"{graphs.capture_s:.3f}, memory reserved by the captures "
+            f"{graphs.reserved_bytes / 2**20:.1f} MiB), eager {eager_s:.3f}; host reads: graph "
+            f"{reads} over {iterations_run} iteration replays ({reads / iterations_run:.2f} a "
+            f"trip, one of them before the first), eager {eager_reads} "
+            f"({eager_reads / (iterations + 1):.2f} a trip); one traced replay: {kernels} "
+            f"kernels, device busy {busy:.3f} ms, idle share {1 - busy / replay_ms:.3f} of the "
+            f"untraced replay ({1 - busy / wall:.3f} of the traced {wall:.3f} ms); Armijo "
+            f"trials: {trial_ms:.4f} ms each (a block of {banded.TRIAL_BLOCK} {search_ms:.3f} "
+            f"ms), the {banded.GRAPH_TRIALS} in the iteration's graph {inside:.3f} of its "
+            f"replay; eager loop KKT {kkt_ms:.2f} ms per solve ({len(kkt or [])} solves); graph "
+            f"against the eager loop: "
+            + ("every field bit for bit" if not parts else f"fields part {parts}")
+            + f"; card '{card_line() if card != 'cpu' else 'cpu'}'")
+    check(counts_equal, f"{tag}: status, iterations, phase or step counts part from "
+                        f"banded_solve_from")
+    check(not parts, f"{tag}: the graph parts from banded_solve_from in {parts}")
+    check(reads == graph_reads, f"{tag}: {reads} host synchronizations, the loop's own reads "
+                                f"{graph_reads}")
+    if one_read:
+        check(reads == iterations_run + 1, f"{tag}: {reads} host reads over {iterations_run} "
+                                           f"iteration replays, not one a trip and one before")
+    return out, ref, graphs
+
+
+def banded_phase(log, card="cuda", swept=None, row_programs=None):
+    """Phase 12 (``card="cpu"`` rehearses it; ``swept``, ``row_programs``:
+    phase 11's rows and their programs)."""
     for route, cd in ROUTE_SETTINGS.items():
         settings = Settings(compute_dtype=cd)
-        runs = {}
-        for where, dev in (("card", card), ("cpu", "cpu")):
-            problem = banded_bench_problem(dev)
-            runs[where] = measured_solve(
-                lambda: banded_solve(problem, settings, max_iterations=100), dev, banded,
-                "_kkt_solve")
-        (out, gpu_s, reads, kkt), (ref, cpu_s, cpu_reads, _) = runs["card"], runs["cpu"]
+        problem = banded_bench_problem(card)
+        out, _, _ = banded_graph_run(log, f"banded bench.py n = 10240 ({route})", problem,
+                                     settings, card)
+        cpu_problem = banded_bench_problem("cpu")
+        ref, cpu_s, cpu_reads, _ = measured_solve(
+            lambda: banded_solve(cpu_problem, settings, max_iterations=100), "cpu", banded,
+            "_kkt_solve")
         iters, cpu_iters = int(out.iteration), int(ref.iteration)
         dx = float((out.X.cpu() - ref.X).abs().max())
-        kkt_ms = 1e3 * sum(kkt) / max(len(kkt), 1) if kkt else float("nan")
-        log(12, f"banded bench.py n = 10240 ({route}): {solve_summary(out)}; iterations card "
-                f"{iters}, CPU {cpu_iters}, JAX {BANDED_JAX_ITERATIONS[route]}; card "
-                f"{gpu_s:.3f} s, {1e3 * gpu_s / max(iters, 1):.2f} ms per iteration, host reads "
-                f"{reads} ({reads / max(iters, 1):.1f} per iteration), KKT {kkt_ms:.2f} ms per "
-                f"solve ({len(kkt or [])} solves); CPU {cpu_s:.3f} s, "
-                f"{1e3 * cpu_s / max(cpu_iters, 1):.2f} ms per iteration, flag reads {cpu_reads}; "
-                f"max |X_card - X_cpu| {dx:.3e}")
+        log(12, f"banded bench.py n = 10240 ({route}): iterations card {iters}, CPU "
+                f"{cpu_iters}, JAX {BANDED_JAX_ITERATIONS[route]}; CPU {cpu_s:.3f} s, "
+                f"{1e3 * cpu_s / max(cpu_iters, 1):.2f} ms per iteration, flag reads "
+                f"{cpu_reads}; max |X_card - X_cpu| {dx:.3e}")
         for what, st in (("card", out), ("CPU", ref)):
             check(int(st.status) == Status.OPTIMAL, f"banded bench {route} ({what}): not OPTIMAL")
             check(float(st.feas_res) <= 1e-6 and float(st.stat_res) <= 1e-6,
@@ -1350,6 +1459,25 @@ def banded_phase(log, card="cuda", swept=None):
             check(dx <= 1e-8, f"banded bench float64: X differs from the CPU's by {dx:.3e}")
         check(out.X.device.type == torch.device(card).type, "the banded state left the card")
 
+    # a solve that enters restoration: the phase switch and the restoration
+    # graphs, captured once the solve first restores
+    settings = Settings()
+    out, _, graphs = banded_graph_run(log, "locally infeasible chain (float64)",
+                                      banded_infeasible_problem(card), settings, card,
+                                      max_iterations=300, one_read=False)
+    cpu_problem = banded_infeasible_problem("cpu")
+    ref = banded.banded_solve_from(cpu_problem, settings, banded.banded_initial_state(
+        cpu_problem, settings, torch.zeros((4, 1), dtype=torch.float64)), 300)
+    log(12, f"locally infeasible chain: card {solve_summary(out)}; CPU {solve_summary(ref)}")
+    check(int(out.status) in (Status.INFEASIBLE, Status.ABORT_DEADPOINT)
+          and int(out.status) == int(ref.status),
+          f"locally infeasible chain: status {Status(int(out.status)).name}, CPU "
+          f"{Status(int(ref.status)).name}")
+    check(list(graphs.programs)[:3] == ["opt.iterate", "opt.search", "opt.finish"]
+          and graphs.replays["rest.iterate"] > 0 and graphs.replays["rest.search"] > 0,
+          f"locally infeasible chain: restoration programs {list(graphs.programs)}, replays "
+          f"{graphs.replays}")
+
     # the suite's banded rows, as phase 11 swept them through run_problem
     tool = load_suite_tool()
     for route in ROUTE_SETTINGS:
@@ -1359,9 +1487,18 @@ def banded_phase(log, card="cuda", swept=None):
             check(fields is not None, f"phase 11 did not sweep {name} on the {route} route")
             f, f_ref = float(fields[4]), float(ref[4])
             its, its_ref = int(fields[8]), int(ref[8])
+            programs = (row_programs or {}).get(route, {}).get(name, [])
+            check(len(programs) == 1, f"{name} ({route}): {len(programs)} cached solve programs")
+            g = programs[0]
+            captures = g.warmup_s + g.capture_s
             log(12, f"{name} ({route}): {fields[3]} obj={f!r} (r5 {f_ref!r}); iterations {its} "
                     f"(r5 {its_ref}); feas {fields[5]} stat {fields[7]}; {fields[9]} s, "
-                    f"{1e3 * float(fields[9]) / max(its, 1):.2f} ms per iteration")
+                    f"{1e3 * float(fields[9]) / max(its, 1):.2f} ms per iteration, the first "
+                    f"captures included: warm-up {g.warmup_s:.3f} s and capture "
+                    f"{g.capture_s:.3f} s ({1e3 * (float(fields[9]) - captures) / max(its, 1):.2f}"
+                    f" ms per iteration without them), memory reserved by the captures "
+                    f"{g.reserved_bytes / 2**20:.1f} MiB (N_b = {g.bufs['state'].X.shape[0]}); "
+                    f"replays {g.replays}")
             check(fields[3] == ref[3], f"{name} {route}: status {fields[3]}, r5 {ref[3]}")
             check(abs(f - f_ref) <= 1e-6 * max(1.0, abs(f_ref)),
                   f"{name} {route}: objective {f}, r5 {f_ref}")
@@ -3763,14 +3900,14 @@ def main():
 
     # -- phase 11: the suite sweep on both routes (no kernel of B1-B6) ----
     clear_counts()
-    swept = suite_phase(log)
+    swept, row_programs = suite_phase(log)
     launches_suite = read_counts()
     check(not any(launches_suite.values()),
           f"the suite phase launched a kernel of B1-B6: {launches_suite}")
 
     # -- phase 12: the banded structured path (no kernel of B1-B6) ---------
     clear_counts()
-    banded_phase(log, swept=swept)
+    banded_phase(log, swept=swept, row_programs=row_programs)
     launches_banded = read_counts()
     log(12, f"launches of B1-B6: {launches_banded}")
     check(not any(launches_banded.values()),

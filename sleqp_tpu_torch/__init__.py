@@ -14,7 +14,9 @@ layer (``ops/``) runs the streaming block Thomas
 (``kernels/csrc/thomas.cu``) and the Cholesky block Thomas
 (``kernels/csrc/chol_thomas.cu``).  The large-n paths solve banded NLPs
 (``banded.py``: a block-tridiagonal condensed KKT solve per iteration,
-float64 block Thomas or the float32 scan with refinement) and general
+float64 block Thomas or the float32 scan with refinement; like the OCP
+solve, its loop runs as CUDA graphs with one host read an iteration,
+``graphs.py``) and general
 sparse NLPs matrix-free (``sparse.py``: reverse-mode products and
 conjugate gradients), with the PDLP Cauchy LP on operators that never
 materialize the Jacobian.  The front ends are the scipy-style
@@ -27,7 +29,7 @@ an iteration (``profile.py``) and the command line,
 points run on CUDA unless given ``device="cpu"``.
 """
 
-from .banded import BandedProblem, banded_solve
+from .banded import BandedProblem, banded_solve, banded_solve_from, banded_solve_jit
 from .ocp import (
     BlockStructuredProblem,
     OCPState,
@@ -98,6 +100,8 @@ __all__ = [
     "StepType",
     "TRSolver",
     "banded_solve",
+    "banded_solve_from",
+    "banded_solve_jit",
     "batched_ocp_solve",
     "create_iterate",
     "derive_scaling",

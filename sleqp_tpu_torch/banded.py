@@ -43,26 +43,40 @@ and Hessian blocks, which come back in the problem dtype; feasibility, the
 stationarity residual and the merit stay float64.  A callable must follow
 its arguments' dtype (``types.py``), for example ``W.to(x)[t]``.
 
-The reference's ``lax.while_loop``s and ``lax.cond``s become host
-decisions: the iteration loop is one eager loop that reads the status and
-the phase together, an iteration reads its stop flags once, and the Armijo
-loop one flag a trial.  ``banded_solve_jit`` has no counterpart.  Entry
-points run where the problem lives: ``BandedProblem(device=None)`` means
-CUDA.
+The reference's solve is one ``jit``-compiled ``lax.while_loop``
+(``banded_solve_jit``) whose body is a ``lax.cond`` on the phase.  Its
+counterpart here runs each phase's iteration as read-free programs
+(``graphs.Programs``), captured as CUDA graphs on the card and replayed
+with one read of a flag after each: the iteration runs under
+``lanes.device_resident()``, where the early stop, the quasi-Newton push
+and the local-infeasibility certificate are selects and the Armijo loop's
+trials are masked, the first few inside the iteration's graph and the rest
+in blocks.  The flag's phase bit picks the next iteration's graph; the
+restoration graphs are captured only once a solve enters restoration.  On
+the CPU the same programs run eagerly, with the same reads.
+``banded_solve_from`` keeps the eager loop that reads as it goes (the loop's
+status and phase, the early stop, the descent flag and one Armijo flag a
+trial); it is the graphs' oracle.  Entry points run where the problem lives:
+``BandedProblem(device=None)`` means CUDA.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch.func import grad, vjp, vmap
 
 from .device import resolve_device
+from .graphs import LAUNCHES as _LAUNCHES
+from .graphs import RUNNING, SEARCHING, Programs, cached, state_key
+from .graphs import captured as _captured
+from .graphs import on_graphs as _on_graphs
 from .iterate import max0
 from .kernels._build import require_full_fp32
+from .lanes import device_resident, is_device_resident, lanes_any, lockstep, tree_map, tree_where
 from .ops import pdlp
 from .ops.block_tridiag import block_tridiag_solve
 from .ops.pallas_tridiag import block_tridiag_solve_mp
@@ -610,34 +624,90 @@ def _mixed_route(settings: Settings, dtype) -> bool:
     return settings.compute_dtype == "float32" and dtype == torch.float64
 
 
-def _levenberg(reg: Tensor, ratio: Tensor, accepted: bool, reg_fail: float = REG_FAIL,
+def _levenberg(reg: Tensor, ratio: Tensor, accepted: Tensor, reg_fail: float = REG_FAIL,
                reg_max: float = REG_MAX) -> Tensor:
-    """The Levenberg update on the trust_radius.c:47-84 thresholds."""
-    if accepted:
-        return torch.where(
-            ratio >= 0.9, torch.clamp(reg / 7.0, min=REG_MIN),
-            torch.where(ratio >= 0.3, torch.clamp(reg / 2.0, min=REG_MIN), reg))
-    return torch.clamp(torch.clamp(10.0 * reg, min=reg_fail), max=reg_max)
+    """The Levenberg update on the trust_radius.c:47-84 thresholds
+    (``accepted``: a 0-d bool tensor)."""
+    up = torch.where(
+        ratio >= 0.9, torch.clamp(reg / 7.0, min=REG_MIN),
+        torch.where(ratio >= 0.3, torch.clamp(reg / 2.0, min=REG_MIN), reg))
+    return torch.where(accepted, up, torch.clamp(torch.clamp(10.0 * reg, min=reg_fail),
+                                                 max=reg_max))
 
 
-def _armijo(value, base: Tensor, descent: Tensor, settings: Settings, dtype, dev,
-            max_steps: int = MAX_LINESEARCH_STEPS):
-    """The reference's backtracking loop: (alpha, accepted), one host read
-    a trial; ``value(alpha)`` is the merit (or violation) at alpha."""
-    alpha = _scalar(1.0, dtype, dev)
-    for _ in range(max_steps):
-        if bool(value(alpha) <= base - settings.linesearch_eta * alpha * descent):
-            return alpha, True
-        alpha = settings.linesearch_tau * alpha
-    return _scalar(0.0, dtype, dev), False
+class _OptSearch(NamedTuple):
+    """What an optimality iteration's linesearch and update take from its
+    first part (derivatives, working set, stop test, EQP step, penalty)."""
+
+    X: Tensor
+    d: Tensor
+    penalty: Tensor
+    base: Tensor  # the l1 merit at X
+    descent: Tensor
+    has_descent: Tensor  # False where the iteration stops
+    dHd: Tensor
+    g: Tensor
+    Jl: Tensor
+    Jr: Tensor
+    lam_qp: Tensor
+    act_low: Tensor
+    act_up: Tensor
+    qn_B: Tensor
+    feas_res: Tensor
+    stat_res: Tensor
+    infeasible: Tensor
+    optimal: Tensor
+    stop: Tensor
 
 
-def _optimality_iteration(problem: BandedProblem, settings: Settings,
-                          state: BandedState) -> BandedState:
-    """One structured SQP iteration on the banded problem
-    (problem_solver/iteration.c:350 with the subproblem layers specialized
-    to block-banded structure).  Reads the stop flags once, the descent
-    flag once and one flag a linesearch trial."""
+class _RestSearch(NamedTuple):
+    """What a restoration iteration's linesearch and update take from its
+    first part (the Gauss-Newton step on the violation)."""
+
+    X: Tensor
+    d: Tensor
+    base: Tensor  # the l1 violation at X
+    descent: Tensor
+    has_descent: Tensor
+    feas_res: Tensor
+
+
+def _trial_point(problem, s, alpha: Tensor) -> Tensor:
+    return problem.clip(s.X + alpha * s.d)
+
+
+def _armijo_start(s):
+    """(alpha, accepted) before the first Armijo trial."""
+    return torch.ones_like(s.base), torch.zeros_like(s.has_descent)
+
+
+def _armijo(problem, settings: Settings, trial, s, carry, trips: int, first=None):
+    """Up to ``trips`` backtracking trials of the Armijo rule from ``carry``
+    (``lockstep``: one read a trial, or ``trips`` masked trials under
+    device_resident); ``trial(problem, s, alpha)`` is the merit (or
+    violation) at alpha."""
+
+    def step(carry, trip):
+        alpha, _ = carry
+        ok = trial(problem, s, alpha) <= s.base - settings.linesearch_eta * alpha * s.descent
+        return torch.where(ok, alpha, settings.linesearch_tau * alpha), ok
+
+    return lockstep(lambda c: s.has_descent & ~c[1], step, carry, max_trips=trips, first=first)
+
+
+def _stopped(state: BandedState, optimal: Tensor, feas_res: Tensor,
+             stat_res: Tensor) -> BandedState:
+    """The state of a solve that stops here: OPTIMAL or a dead point."""
+    status = torch.where(optimal, int(Status.OPTIMAL), int(Status.ABORT_DEADPOINT))
+    return dataclasses.replace(state, status=status.to(torch.int32), feas_res=feas_res,
+                               stat_res=stat_res)
+
+
+def _opt_search(problem: BandedProblem, settings: Settings, state: BandedState):
+    """An optimality iteration (problem_solver/iteration.c:350 with the
+    subproblem layers specialized to block-banded structure) up to its
+    linesearch: an ``_OptSearch``, or the stopped state when the iteration
+    stops (one read; none under device_resident)."""
     dtype, dev = problem.dtype, state.X.device
     X = state.X
     N_b, k, q = problem.N_b, problem.k, problem.q
@@ -692,29 +762,24 @@ def _optimality_iteration(problem: BandedProblem, settings: Settings,
     sign_ok = torch.where(
         state.act_low & ~is_eq, state.lam <= tol_act,
         torch.where(state.act_up, state.lam >= -tol_act, True)).all()
-    optimal_t = (feas_res <= settings.feas_tol) & (stat_res <= settings.stat_tol) & sign_ok
+    optimal = (feas_res <= settings.feas_tol) & (stat_res <= settings.stat_tol) & sign_ok
     # a feasible stall with the regularization maxed out is a deadpoint
     # abort; an INFEASIBLE stall hands over to the restoration phase
-    infeasible_now = feas_res > settings.feas_tol
-    deadpoint_t = (state.reg >= REG_MAX) & ~infeasible_now
-    optimal, deadpoint, qn_pending = torch.stack(
-        [optimal_t, deadpoint_t, state.qn_pending]).tolist()
-    if optimal or deadpoint:
-        status = Status.OPTIMAL if optimal else Status.ABORT_DEADPOINT
-        return dataclasses.replace(state, status=_scalar(int(status), torch.int32, dev),
-                                   feas_res=feas_res, stat_res=stat_res)
+    infeasible = feas_res > settings.feas_tol
+    stop = optimal | ((state.reg >= REG_MAX) & ~infeasible)
+    if not lanes_any(~stop):
+        return _stopped(state, optimal, feas_res, stat_res)
 
     # ---- EQP step on the working set -----------------------------------
-    use_qn = settings.hess_eval != HessEval.EXACT
-    if use_qn:
-        qn_B = state.qn_B
-        if qn_pending:
-            # push the pending pair at the NEW multipliers (quasi_newton.c:140
-            # convention: y = gradL(x_new, lam_new) - gradL(x_old, lam_new),
-            # the old Lagrangian gradient rebuilt from the stored blocks)
-            glag_old = state.qn_prev_g + _prev_jtvp(
-                problem, state.qn_prev_Jl, state.qn_prev_Jr, lam_act)
-            qn_B = _block_bfgs_push(state.qn_B, X - state.qn_prev_X, r - glag_old)
+    if settings.hess_eval != HessEval.EXACT:
+        # push the pending pair at the NEW multipliers (quasi_newton.c:140
+        # convention: y = gradL(x_new, lam_new) - gradL(x_old, lam_new),
+        # the old Lagrangian gradient rebuilt from the stored blocks)
+        glag_old = state.qn_prev_g + _prev_jtvp(
+            problem, state.qn_prev_Jl, state.qn_prev_Jr, lam_act)
+        qn_B = torch.where(state.qn_pending,
+                           _block_bfgs_push(state.qn_B, X - state.qn_prev_X, r - glag_old),
+                           state.qn_B)
         Hd = qn_B
         Hs = torch.zeros((N_b - 1, k, k), dtype=dtype, device=dev)
     else:
@@ -734,97 +799,106 @@ def _optimality_iteration(problem: BandedProblem, settings: Settings,
     penalty = torch.where(state.penalty >= 1.5 * lam_norm, state.penalty,
                           torch.maximum(10.0 * state.penalty, 2.0 * lam_norm))
 
-    # ---- l1 merit + backtracking linesearch ----------------------------
+    # ---- what the l1-merit backtracking linesearch needs ---------------
     gd = (g * d).sum()
     dHd = torch.einsum("ti,tij,tj->", d, Hd, d) + 2.0 * torch.einsum(
         "ti,tij,tj->", d[1:], Hs, d[:-1])
     viol0 = viol.sum()
-    merit0 = state.obj_val + penalty * viol0
-
-    def trial_point(alpha):
-        return problem.clip(X + alpha * d)
-
-    def trial_merit(alpha):
-        Xa = trial_point(alpha)
-        return problem.obj(Xa) + penalty * _violation(problem, problem.cons(Xa)).sum()
-
     descent = penalty * viol0 - gd
-    has_descent = bool((descent > 0.0) & step_ok)
-    accepted = False
-    alpha = _scalar(0.0, dtype, dev)
-    if has_descent:
-        alpha, accepted = _armijo(trial_merit, merit0, descent, settings, dtype, dev)
+    return _OptSearch(
+        X=X, d=d, penalty=penalty, base=state.obj_val + penalty * viol0, descent=descent,
+        has_descent=(descent > 0.0) & step_ok & ~stop, dHd=dHd, g=g, Jl=Jl, Jr=Jr,
+        lam_qp=lam_qp, act_low=act_low, act_up=act_up, qn_B=qn_B, feas_res=feas_res,
+        stat_res=stat_res, infeasible=infeasible, optimal=optimal, stop=stop,
+    )
 
-    merit_trial = trial_merit(alpha)
-    X_new = trial_point(alpha)
-    pred = alpha * descent - 0.5 * alpha**2 * dHd
-    actual = merit0 - merit_trial
-    eps10 = 10.0 * torch.finfo(dtype).eps * (1.0 + merit0.abs())
+
+def _opt_trial(problem, s: _OptSearch, alpha: Tensor) -> Tensor:
+    """The l1 merit at the trial point of step length alpha."""
+    Xa = _trial_point(problem, s, alpha)
+    return problem.obj(Xa) + s.penalty * _violation(problem, problem.cons(Xa)).sum()
+
+
+def _opt_finish(problem, settings: Settings, state: BandedState, s: _OptSearch,
+                carry) -> BandedState:
+    """An optimality iteration after its linesearch: the step taken, the
+    reduction ratio, the Levenberg update, the restoration trigger and the
+    quasi-Newton pair.  Under device_resident, where the stop was not
+    read, a state that stops takes its stopped state."""
+    dtype, dev = problem.dtype, state.X.device
+    accepted = carry[1] & s.has_descent
+    alpha = torch.where(accepted, carry[0], 0.0)
+
+    merit_trial = _opt_trial(problem, s, alpha)
+    X_new = _trial_point(problem, s, alpha)
+    pred = alpha * s.descent - 0.5 * alpha**2 * s.dHd
+    actual = s.base - merit_trial
+    eps10 = 10.0 * torch.finfo(dtype).eps * (1.0 + s.base.abs())
     tiny = (pred.abs() <= eps10) & (actual.abs() <= eps10)
     ratio = torch.where(tiny, 1.0, actual / torch.where(pred == 0.0, 1.0, pred))
 
     reg_new = _levenberg(state.reg, ratio, accepted)
-    X_next = X_new if accepted else X
+    X_next = torch.where(accepted, X_new, s.X)
     # delta form: the multiplier estimate moves with the iterate; a
     # rejected step keeps the old duals
-    lam_next = lam_qp if accepted else state.lam
+    lam_next = torch.where(accepted, s.lam_qp, state.lam)
 
     # ---- restoration-phase trigger (solver/phase.c analogue) -----------
-    bad = infeasible_now & (not accepted)
+    bad = s.infeasible & ~accepted
     bad_steps = torch.where(bad, state.bad_steps + 1, 0).to(torch.int32)
-    enter_rest = infeasible_now & ((bad_steps >= RESTORATION_TRIGGER) | (state.reg >= REG_MAX))
+    enter_rest = s.infeasible & ((bad_steps >= RESTORATION_TRIGGER) | (state.reg >= REG_MAX))
     phase_next = torch.where(enter_rest, int(SolverPhase.RESTORATION),
                              int(SolverPhase.OPTIMIZATION)).to(torch.int32)
     reg_next = torch.where(enter_rest, 1e-6, reg_new)
     bad_steps = torch.where(enter_rest, 0, bad_steps).to(torch.int32)
 
-    if use_qn and accepted:
+    if settings.hess_eval != HessEval.EXACT:
         # record the pre-step point; the pair pushes next iteration once
         # the new duals are available (quasi_newton.c)
-        qn_prev = dict(qn_prev_X=X, qn_prev_g=g, qn_prev_Jl=Jl, qn_prev_Jr=Jr)
+        qn_prev = dict(qn_prev_X=torch.where(accepted, s.X, state.qn_prev_X),
+                       qn_prev_g=torch.where(accepted, s.g, state.qn_prev_g),
+                       qn_prev_Jl=torch.where(accepted, s.Jl, state.qn_prev_Jl),
+                       qn_prev_Jr=torch.where(accepted, s.Jr, state.qn_prev_Jr),
+                       qn_pending=accepted)
     else:
         qn_prev = dict(qn_prev_X=state.qn_prev_X, qn_prev_g=state.qn_prev_g,
-                       qn_prev_Jl=state.qn_prev_Jl, qn_prev_Jr=state.qn_prev_Jr)
-    pending = (torch.full((), accepted, dtype=torch.bool, device=dev) if use_qn
-               else state.qn_pending)
+                       qn_prev_Jl=state.qn_prev_Jl, qn_prev_Jr=state.qn_prev_Jr,
+                       qn_pending=state.qn_pending)
 
-    return BandedState(
+    out = BandedState(
         X=X_next,
         lam=lam_next,
-        act_low=act_low,
-        act_up=act_up,
-        penalty=penalty,
+        act_low=s.act_low,
+        act_up=s.act_up,
+        penalty=s.penalty,
         reg=reg_next,
         iteration=state.iteration + 1,
         status=_scalar(int(Status.RUNNING), torch.int32, dev),
-        num_accepted=state.num_accepted + int(accepted),
-        num_rejected=state.num_rejected + int(not accepted),
+        num_accepted=state.num_accepted + accepted.to(torch.int32),
+        num_rejected=state.num_rejected + (~accepted).to(torch.int32),
         obj_val=problem.obj(X_next),
-        feas_res=feas_res,
-        stat_res=stat_res,
+        feas_res=s.feas_res,
+        stat_res=s.stat_res,
         last_ratio=ratio,
         last_alpha=alpha,
         phase=phase_next,
         bad_steps=bad_steps,
-        qn_B=qn_B,
-        qn_pending=pending,
+        qn_B=s.qn_B,
         **qn_prev,
     )
+    if not is_device_resident():
+        return out  # the stop was read: this iteration runs on
+    return tree_where(s.stop, _stopped(state, s.optimal, s.feas_res, s.stat_res), out)
 
 
-def _restoration_iteration(problem: BandedProblem, settings: Settings,
-                           state: BandedState) -> BandedState:
-    """Feasibility restoration on the banded path.
+def _rest_search(problem: BandedProblem, settings: Settings, state: BandedState) -> _RestSearch:
+    """A feasibility-restoration iteration up to its linesearch.
 
     The structured analogue of the dense restoration phase
     (solver/phase.c:97-147, restoration.c): Levenberg-regularized
     Gauss-Newton steps on the constraint violation through the SAME
     condensed block-tridiagonal solve, with an identity prox metric and the
-    violated rows as working set.  Returns to OPTIMIZATION once feasible
-    (duals kept, penalty x10); a maxed-out regularization while still
-    infeasible is a local-infeasibility certificate (Status.INFEASIBLE).
-    Reads the descent flag, one flag a trial and the certificate flag.
-    """
+    violated rows as working set."""
     dtype, dev = problem.dtype, state.X.device
     X = state.X
     N_b, k = problem.N_b, problem.k
@@ -854,43 +928,45 @@ def _restoration_iteration(problem: BandedProblem, settings: Settings,
     # predicted violation drop of the FULL linearized step
     Jd = torch.einsum("tqk,tk->tq", Jl, d[:-1]) + torch.einsum("tqk,tk->tq", Jr, d[1:])
     descent = phi0 - _violation(problem, C + Jd).sum()
+    return _RestSearch(X=X, d=d, base=phi0, descent=descent,
+                       has_descent=(descent > 0.0) & step_ok, feas_res=feas_res)
 
-    def trial_point(alpha):
-        return problem.clip(X + alpha * d)
 
-    def trial(alpha):
-        return _violation(problem, problem.cons(trial_point(alpha))).sum()
+def _rest_trial(problem, s: _RestSearch, alpha: Tensor) -> Tensor:
+    """The l1 violation at the trial point of step length alpha."""
+    return _violation(problem, problem.cons(_trial_point(problem, s, alpha))).sum()
 
-    has_descent = bool((descent > 0.0) & step_ok)
-    accepted = False
-    alpha = _scalar(0.0, dtype, dev)
-    if has_descent:
-        alpha, accepted = _armijo(trial, phi0, descent, settings, dtype, dev)
-    phi_new = trial(alpha)
-    X_new = trial_point(alpha)
 
-    pred = alpha * descent
-    eps10 = 10.0 * torch.finfo(dtype).eps * (1.0 + phi0.abs())
-    tiny = (pred.abs() <= eps10) & ((phi0 - phi_new).abs() <= eps10)
-    ratio = torch.where(tiny, 1.0, (phi0 - phi_new) / torch.where(pred == 0.0, 1.0, pred))
+def _rest_finish(problem, settings: Settings, state: BandedState, s: _RestSearch,
+                 carry) -> BandedState:
+    """A restoration iteration after its linesearch.  Returns to
+    OPTIMIZATION once feasible (duals kept, penalty x10); a maxed-out
+    regularization while still infeasible is a local-infeasibility
+    certificate (Status.INFEASIBLE), selected, not read."""
+    dev = state.X.device
+    accepted = carry[1] & s.has_descent
+    alpha = torch.where(accepted, carry[0], 0.0)
+    phi_new = _rest_trial(problem, s, alpha)
+    X_new = _trial_point(problem, s, alpha)
+
+    pred = alpha * s.descent
+    eps10 = 10.0 * torch.finfo(problem.dtype).eps * (1.0 + s.base.abs())
+    tiny = (pred.abs() <= eps10) & ((s.base - phi_new).abs() <= eps10)
+    ratio = torch.where(tiny, 1.0, (s.base - phi_new) / torch.where(pred == 0.0, 1.0, pred))
     reg_new = _levenberg(state.reg, ratio, accepted)
 
-    X_next = X_new if accepted else X
+    X_next = torch.where(accepted, X_new, s.X)
     feas_new = max0(_violation(problem, problem.cons(X_next)))
     restored = feas_new <= settings.feas_tol
-    # local-infeasibility certificate: GN on the violation cannot move
-    if bool((~restored) & (state.reg >= REG_MAX)):
-        return dataclasses.replace(state, status=_scalar(int(Status.INFEASIBLE), torch.int32, dev),
-                                   feas_res=feas_res)
-    return dataclasses.replace(
+    running = dataclasses.replace(
         state,
         X=X_next,
         penalty=torch.where(restored, 10.0 * state.penalty, state.penalty),
         reg=torch.where(restored, 1e-8, reg_new),
         iteration=state.iteration + 1,
         status=_scalar(int(Status.RUNNING), torch.int32, dev),
-        num_accepted=state.num_accepted + int(accepted),
-        num_rejected=state.num_rejected + int(not accepted),
+        num_accepted=state.num_accepted + accepted.to(torch.int32),
+        num_rejected=state.num_rejected + (~accepted).to(torch.int32),
         obj_val=problem.obj(X_next),
         feas_res=feas_new,
         last_ratio=ratio,
@@ -900,12 +976,33 @@ def _restoration_iteration(problem: BandedProblem, settings: Settings,
         bad_steps=_scalar(0, torch.int32, dev),
         qn_pending=torch.zeros((), dtype=torch.bool, device=dev),  # the pair straddles a phase jump
     )
+    # local-infeasibility certificate: GN on the violation cannot move
+    certified = ~restored & (state.reg >= REG_MAX)
+    stopped = dataclasses.replace(state, status=_scalar(int(Status.INFEASIBLE), torch.int32, dev),
+                                  feas_res=s.feas_res)
+    return tree_where(certified, stopped, running)
 
 
-def _iterate(problem, settings, state, phase: int):
-    if phase == SolverPhase.RESTORATION:
-        return _restoration_iteration(problem, settings, state)
-    return _optimality_iteration(problem, settings, state)
+# phase -> (first part, Armijo trial, update) of an iteration
+_PHASES = {
+    SolverPhase.OPTIMIZATION: (_opt_search, _opt_trial, _opt_finish),
+    SolverPhase.RESTORATION: (_rest_search, _rest_trial, _rest_finish),
+}
+
+
+def _iterate(problem, settings, state, phase: int) -> BandedState:
+    """One iteration of ``phase``.  Reads the early stop, the descent flag
+    and one flag an Armijo trial; under device_resident nothing, and the
+    linesearch runs its MAX_LINESEARCH_STEPS trials masked."""
+    search, trial, finish = _PHASES[SolverPhase(phase)]
+    s = search(problem, settings, state)
+    if isinstance(s, BandedState):
+        return s
+    carry = _armijo_start(s)
+    if lanes_any(s.has_descent):
+        carry = _armijo(problem, settings, trial, s, carry, MAX_LINESEARCH_STEPS,
+                        first=s.has_descent)
+    return finish(problem, settings, state, s, carry)
 
 
 def banded_perform_iteration(problem: BandedProblem, settings: Settings,
@@ -918,27 +1015,17 @@ def banded_perform_iteration(problem: BandedProblem, settings: Settings,
     return _iterate(problem, settings, state, int(state.phase))
 
 
-def banded_solve(
-    problem: BandedProblem,
-    settings: Optional[Settings] = None,
-    X0: Any = None,
-    max_iterations: int = 200,
-    seed_working_set: bool = False,
-    state0: Optional[BandedState] = None,
-) -> BandedState:
-    """Solve a banded NLP where the problem lives; returns the final
-    BandedState.  Iterates from ``state0`` when given (then ``X0`` and
-    ``seed_working_set`` are unused), else from ``banded_initial_state``.
-    The loop reads the status and the phase together once an iteration;
-    a state still RUNNING after ``max_iterations`` ends as ABORT_ITER."""
-    settings = settings or Settings()
+def banded_solve_from(problem: BandedProblem, settings: Settings, state0: BandedState,
+                      max_iterations: int = 200) -> BandedState:
+    """Iterate from ``state0`` until OPTIMAL, INFEASIBLE, a dead point or
+    ``max_iterations`` (then ABORT_ITER), eagerly, reading as it goes: the
+    status and the phase together once a trip, and the early stop, the
+    descent flag and each Armijo trial's flag inside an iteration.  It is
+    the oracle of ``banded_solve_jit``: the same iterations, the same
+    bits."""
     dev = problem.device
     if dev.type == "cuda":
         require_full_fp32()
-    if state0 is None:
-        if X0 is None:
-            X0 = torch.zeros((problem.N_b, problem.k), dtype=problem.dtype, device=dev)
-        state0 = banded_initial_state(problem, settings, X0, seed_working_set=seed_working_set)
     state = state0
     iteration = int(state.iteration)
     status, phase = torch.stack([state.status, state.phase]).tolist()
@@ -949,3 +1036,155 @@ def banded_solve(
     if status == Status.RUNNING:
         state = dataclasses.replace(state, status=_scalar(int(Status.ABORT_ITER), torch.int32, dev))
     return state
+
+
+# ---- the solve as device programs (banded_solve_jit) ----------------------
+
+# The Armijo trials of banded_solve_jit's iteration: the first few inside
+# the iteration's graph, the rest, while the linesearch goes on, in blocks
+# of masked trials, one read a block.  Together MAX_LINESEARCH_STEPS.  No
+# linesearch of bench.py's banded problem or of the suite's banded rows
+# takes more than 7 trials, and a trial is a few dozen of an iteration's
+# thousands of kernels.
+GRAPH_TRIALS = 8
+TRIAL_BLOCK = 11
+_BLOCKS, _LEFT = divmod(MAX_LINESEARCH_STEPS - GRAPH_TRIALS, TRIAL_BLOCK)
+assert _LEFT == 0, "the trial blocks must end at the linesearch's cap"
+
+RESTORING = 4  # flag bit beside graphs.RUNNING and SEARCHING: the next iteration restores
+# the prefix of each phase's programs and buffers
+_PROGRAM = {SolverPhase.OPTIMIZATION: "opt", SolverPhase.RESTORATION: "rest"}
+
+
+def _running(state: BandedState, max_iterations: Tensor) -> Tensor:
+    return (state.status == int(Status.RUNNING)) & (state.iteration < max_iterations)
+
+
+def _flag(state: BandedState, max_iterations: Tensor, searching=None) -> Tensor:
+    bits = (_running(state, max_iterations).to(torch.int32)
+            + RESTORING * (state.phase == int(SolverPhase.RESTORATION)).to(torch.int32))
+    return bits if searching is None else bits + SEARCHING * searching.to(torch.int32)
+
+
+def _phase_programs(problem, settings, phase: SolverPhase) -> dict:
+    """The three read-free programs of a ``phase`` iteration in
+    ``banded_solve_jit``'s loop, by name, on a dict of buffers (``state``,
+    ``max_it``; ``<prefix>.s`` and ``<prefix>.carry`` of an iteration whose
+    linesearch goes on; ``flag``): each returns the buffers it writes.
+    ``<prefix>.iterate``: one iteration with its first GRAPH_TRIALS Armijo
+    trials when the state runs; where the linesearch goes on (flag bit
+    SEARCHING) the state is left as it was, and ``<prefix>.search``
+    (TRIAL_BLOCK more trials; the same bit) and ``<prefix>.finish`` end the
+    iteration.  The flags of ``iterate`` and ``finish`` also say whether the
+    state runs (RUNNING) and whether its next iteration restores
+    (RESTORING)."""
+    search, trial, finish = _PHASES[phase]
+    name = _PROGRAM[phase]
+    s_buf, carry_buf = f"{name}.s", f"{name}.carry"
+
+    def iterate(b):
+        state, max_it = b["state"], b["max_it"]
+        run = _running(state, max_it)
+        with device_resident():
+            s = search(problem, settings, state)
+            carry = _armijo(problem, settings, trial, s, _armijo_start(s), GRAPH_TRIALS,
+                            first=s.has_descent)
+            out = finish(problem, settings, state, s, carry)
+        searching = run & s.has_descent & ~carry[1]
+        # a state that does not run, or whose linesearch goes on, stays
+        out = tree_where(run & ~searching, out, state)
+        return {"state": out, s_buf: s, carry_buf: carry, "flag": _flag(out, max_it, searching)}
+
+    def search_block(b):
+        s = b[s_buf]
+        with device_resident():
+            carry = _armijo(problem, settings, trial, s, b[carry_buf], TRIAL_BLOCK)
+        return {carry_buf: carry, "flag": SEARCHING * (s.has_descent & ~carry[1]).to(torch.int32)}
+
+    def finish_step(b):
+        with device_resident():
+            out = finish(problem, settings, b["state"], b[s_buf], b[carry_buf])
+        return {"state": out, "flag": _flag(out, b["max_it"])}
+
+    return {f"{name}.iterate": iterate, f"{name}.search": search_block,
+            f"{name}.finish": finish_step}
+
+
+def _capture_hint(problem: BandedProblem) -> str:
+    callables = ", ".join(f"{field}={getattr(f, '__qualname__', repr(f))}"
+                          for field, f in (("obj_block", problem.obj_block),
+                                           ("cons_block", problem.cons_block)) if f is not None)
+    return ("banded_solve_jit: the iteration could not be captured as a CUDA graph; the "
+            f"problem's callables ({callables}) run inside it and must neither read the card "
+            "(.item(), bool(), .tolist(), .cpu()) nor copy host data to it (a tensor made from "
+            "host values or moved from the CPU inside the callable)")
+
+
+def solve_graphs(problem: BandedProblem, settings: Settings, state0: BandedState,
+                 max_iterations: int = 200) -> Programs:
+    """``banded_solve_jit``'s programs for this problem, settings and the
+    device, shapes and dtypes of ``state0``, made at the first call and
+    cached on the problem.  On CUDA a phase's programs are captured when a
+    solve first runs an iteration of that phase: the restoration programs
+    only once a solve enters restoration."""
+
+    def make():
+        dev = state0.X.device
+        bodies = {**_phase_programs(problem, settings, SolverPhase.OPTIMIZATION),
+                  **_phase_programs(problem, settings, SolverPhase.RESTORATION)}
+        bufs = dict(state=tree_map(torch.clone, state0),
+                    max_it=torch.full((), max_iterations, dtype=torch.int32, device=dev))
+        return Programs(bodies, bufs, _on_graphs(dev), _captured, _LAUNCHES,
+                        hint=_capture_hint(problem))
+
+    return cached(problem, (settings, *state_key(state0)), make)
+
+
+def banded_solve_jit(problem: BandedProblem, settings: Settings, state0: BandedState,
+                     max_iterations: int) -> BandedState:
+    """The whole solve from ``state0`` as device programs
+    (``sleqp_tpu/banded.py::banded_solve_jit``): on the card CUDA graphs of
+    one read-free iteration of each phase (``solve_graphs``, cached on the
+    problem: a second solve of the same problem, settings and shapes
+    replays without a new capture), on the CPU the same programs eagerly.
+    The host reads the flag the loop's programs leave once before the
+    first iteration and once after each program: one read an iteration
+    unless a linesearch outlasts GRAPH_TRIALS trials.  The flag's phase bit
+    picks the next iteration's program (the reference's ``lax.cond``).  A
+    state still RUNNING at the end is ABORT_ITER.  The result is
+    ``banded_solve_from``'s, bit for bit.  A capture that fails raises."""
+    if state0.X.device.type == "cuda":
+        require_full_fp32()
+    graphs = solve_graphs(problem, settings, state0, max_iterations)
+    graphs.load(state0, max_iterations)
+    flag = graphs.read(_flag(state0, graphs.bufs["max_it"]))
+    while flag & RUNNING:
+        name = _PROGRAM[SolverPhase.RESTORATION if flag & RESTORING else SolverPhase.OPTIMIZATION]
+        programs = (f"{name}.iterate", f"{name}.search", f"{name}.finish")
+        graphs.prepare(*programs)
+        flag = graphs.step(*programs, _BLOCKS)
+    state = graphs.result()
+    status = torch.where(state.status == int(Status.RUNNING), int(Status.ABORT_ITER), state.status)
+    return dataclasses.replace(state, status=status.to(torch.int32))
+
+
+def banded_solve(
+    problem: BandedProblem,
+    settings: Optional[Settings] = None,
+    X0: Any = None,
+    max_iterations: int = 200,
+    seed_working_set: bool = False,
+    state0: Optional[BandedState] = None,
+) -> BandedState:
+    """Solve a banded NLP where the problem lives; returns the final
+    BandedState.  Iterates from ``state0`` when given (then ``X0`` and
+    ``seed_working_set`` are unused), else from ``banded_initial_state``,
+    through ``banded_solve_jit`` (on the card, CUDA graphs)."""
+    settings = settings or Settings()
+    if state0 is None:
+        if problem.device.type == "cuda":
+            require_full_fp32()
+        if X0 is None:
+            X0 = torch.zeros((problem.N_b, problem.k), dtype=problem.dtype, device=problem.device)
+        state0 = banded_initial_state(problem, settings, X0, seed_working_set=seed_working_set)
+    return banded_solve_jit(problem, settings, state0, max_iterations)

@@ -122,7 +122,10 @@ def _run_banded_problem(
     """Large banded entries (harness/large.py) solve through the structured
     path (banded.py) but emit the SAME CSV schema; the trust-radius column
     carries the Levenberg regularization (the structured analogue) and the
-    Rayleigh columns are zero (no Krylov loop on this path)."""
+    Rayleigh columns are zero (no Krylov loop on this path).  ``banded_solve``
+    runs ``banded_solve_jit``: on the card each row's new problem captures
+    its iteration's CUDA graphs first, and the row's seconds include that
+    warm-up and capture."""
     if time_limit is not None:
         raise ValueError(
             "time_limit is not supported for banded suite entries: the "

@@ -58,7 +58,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -66,9 +65,12 @@ from torch.func import grad, jacrev, vjp, vmap
 from torch.nn.functional import pad
 
 from .kernels._build import require_full_fp32
+from .graphs import LAUNCHES as _LAUNCHES
+from .graphs import RUNNING, Programs, cached, state_key
+from .graphs import captured as _captured
+from .graphs import on_graphs as _on_graphs
 from .lanes import (device_resident, is_batched, is_device_resident, lanes_any, lockstep,
-                    tree_leaves, tree_map, tree_where, vmap_lanes)
-from .ops import cyclic_reduction, pallas_chol_tridiag, pallas_tridiag
+                    tree_map, tree_where, vmap_lanes)
 from .ops.block_tridiag import (block_tridiag_solve, cho_solve, cholesky_or_nan, pad_identity,
                                 pad_zeros, spike_block_tridiag_solve)
 from .ops.cyclic_reduction import batched_gj_inverse, cr_factor, cr_resolve
@@ -797,8 +799,6 @@ TRIAL_BLOCK = 13
 _BLOCKS, _LEFT = divmod(MAX_LINESEARCH_STEPS - GRAPH_TRIALS, TRIAL_BLOCK)
 assert _LEFT == 0, "the trial blocks must end at the linesearch's cap"
 
-_LAUNCHES = (cyclic_reduction.LAUNCHES, pallas_tridiag.LAUNCHES, pallas_chol_tridiag.LAUNCHES)
-
 
 def _programs(problem, settings, tridiag_backend, batched):
     """The three read-free bodies of ``ocp_solve_jit``'s loop, on a dict of
@@ -856,151 +856,31 @@ def _programs(problem, settings, tridiag_backend, batched):
     return iterate, search, finish
 
 
-def _on_graphs(device: torch.device) -> bool:
-    """Whether ``ocp_solve_jit``'s loop runs as CUDA graphs on ``device``."""
-    return device.type == "cuda"
-
-
-def _captured(record: Callable[[], None]) -> "torch.cuda.CUDAGraph":
-    """``record()`` captured as a CUDA graph."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        record()
-    return graph
-
-
-class IterationGraph:
-    """``ocp_solve_jit``'s loop on one device: three read-free programs
-    (``_programs``) on static buffers, replayed as CUDA graphs on the card
-    and run eagerly on the CPU, reading the 0-d ``flag`` buffer once after
-    each.  An iteration is one ``iterate`` and one read, unless a lane's
-    linesearch outlasts GRAPH_TRIALS trials: then ``search`` (a read a
-    block of TRIAL_BLOCK trials) and ``finish`` (a read) end it.
-
-    On CUDA each program runs once eagerly on a side stream, which builds
-    the kernels at their first launch, creates the cuBLAS and cuSOLVER
-    handles and grows the allocator; then it is captured, under
-    ``torch.cuda.set_sync_debug_mode("error")`` so that a host
-    synchronization inside it raises, and ends by copying what it writes
-    into the buffers.  Kernel wrappers count launches when they are called,
-    so the launches made during a capture are taken out of ``LAUNCHES`` and
-    added back once a replay.  ``warmup_s``, ``capture_s`` (capture and
-    instantiation of the three), ``reserved_bytes`` (device memory the
-    allocator reserved during the captures: the graphs' pools),
-    ``launches`` (an ``iterate`` replay's, by kernel), ``replays`` (by
-    program) and ``reads`` (over every run) describe it.  A failure raises;
-    nothing falls back to the eager loop.
-    """
+class IterationGraph(Programs):
+    """``ocp_solve_jit``'s loop on one device: the three read-free programs
+    of ``_programs`` (``graphs.Programs``), replayed as CUDA graphs on the
+    card and run eagerly on the CPU, reading the 0-d ``flag`` buffer once
+    after each.  An iteration is one ``iterate`` and one read, unless a
+    lane's linesearch outlasts GRAPH_TRIALS trials: then ``search`` (a read
+    a block of TRIAL_BLOCK trials) and ``finish`` (a read) end it.  The
+    three are warmed up and captured when it is made."""
 
     def __init__(self, problem, settings, tridiag_backend, batched, state0, max_iterations):
         dev = state0.X.device
-        self.cuda = _on_graphs(dev)
-        bodies = _programs(problem, settings, tridiag_backend, batched)
-        self.names = ("iterate", "search", "finish")
-        self.bufs = dict(state=tree_map(torch.clone, state0),
-                         max_it=torch.full((), max_iterations, dtype=torch.int32, device=dev))
-        self.replays = dict.fromkeys(self.names, 0)
-        self.reads = 0
-        self.warmup_s = self.capture_s = 0.0
-        self.reserved_bytes = 0
-        self.launches = dict.fromkeys(self.names, None)
-        if not self.cuda:
-            self.programs = dict(zip(self.names, bodies))
-            return
-        # warm-up: ``iterate`` once gives the other buffers their shapes
-        stream = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(stream)
-        t = time.perf_counter()
-        with torch.cuda.stream(side):
-            first = bodies[0](self.bufs)
-            for name in ("search", "carry", "run", "flag"):
-                self.bufs[name] = tree_map(torch.clone, first[name])
-            for body in bodies[1:]:
-                body(self.bufs)
-        stream.wait_stream(side)
-        torch.cuda.synchronize(dev)
-        self.warmup_s = time.perf_counter() - t
-        torch.cuda.empty_cache()  # as a capture does first: the pools' growth remains
-        reserved = torch.cuda.memory_reserved(dev)
-        t = time.perf_counter()
-        self.programs = {name: self._capture(name, body) for name, body in zip(self.names, bodies)}
-        torch.cuda.synchronize(dev)
-        self.capture_s = time.perf_counter() - t
-        self.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
-
-    def _capture(self, name, body):
-        def record():
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                for buf, value in body(self.bufs).items():
-                    for dst, src in zip(tree_leaves(self.bufs[buf]), tree_leaves(value)):
-                        dst.copy_(src)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-
-        before = [dict(counts) for counts in _LAUNCHES]
-        try:
-            graph = _captured(record)
-        finally:
-            launches = {}
-            for counts, was in zip(_LAUNCHES, before):
-                launches.update({k: counts[k] - was[k] for k in counts})
-                counts.update(was)
-        self.launches[name] = launches
-        return graph
-
-    def load(self, state0: Any, max_iterations: int) -> None:
-        """Set the state buffers to ``state0`` and the iteration limit."""
-        if self.cuda:
-            for dst, src in zip(tree_leaves(self.bufs["state"]), tree_leaves(state0)):
-                dst.copy_(src)
-            self.bufs["max_it"].fill_(max_iterations)
-        else:
-            self.bufs["state"] = state0
-            self.bufs["max_it"] = torch.full((), max_iterations, dtype=torch.int32,
-                                             device=state0.X.device)
-
-    def replay(self, name: str = "iterate") -> None:
-        """One run of a program on the buffers, its launches counted."""
-        self.replays[name] += 1
-        if not self.cuda:
-            self.bufs.update(self.programs[name](self.bufs))
-            return
-        self.programs[name].replay()
-        for counts in _LAUNCHES:
-            for k in counts:
-                counts[k] += self.launches[name][k]
-
-    def flag(self) -> int:
-        """The one host read after a program."""
-        self.reads += 1
-        return int(self.bufs["flag"])
+        names = ("iterate", "search", "finish")
+        bodies = dict(zip(names, _programs(problem, settings, tridiag_backend, batched)))
+        bufs = dict(state=tree_map(torch.clone, state0),
+                    max_it=torch.full((), max_iterations, dtype=torch.int32, device=dev))
+        super().__init__(bodies, bufs, _on_graphs(dev), _captured, _LAUNCHES)
+        self.prepare(*names)
 
     def run(self, state0: Any, max_iterations: int) -> Any:
         """Iterate from ``state0`` while a lane runs; returns the final
         state (a copy of the buffers on CUDA)."""
         self.load(state0, max_iterations)
-        while True:
-            self.replay("iterate")
-            flag = self.flag()
-            if flag & 2:
-                for _ in range(_BLOCKS):
-                    self.replay("search")
-                    if not self.flag() & 2:
-                        break
-                self.replay("finish")
-                flag = self.flag()
-            if not flag & 1:
-                break
-        state = self.bufs["state"]
-        return tree_map(torch.clone, state) if self.cuda else state
-
-
-def _cache_key(settings, tridiag_backend, batched, state0):
-    return (settings, tridiag_backend, batched, state0.X.device,
-            tuple((tuple(t.shape), t.dtype) for t in tree_leaves(state0)))
+        while self.step("iterate", "search", "finish", _BLOCKS) & RUNNING:
+            pass
+        return self.result()
 
 
 def iteration_graph(problem: BlockStructuredProblem, settings: Settings, state0: Any,
@@ -1011,12 +891,9 @@ def iteration_graph(problem: BlockStructuredProblem, settings: Settings, state0:
     ``batched`` a lane dimension first), made (on CUDA captured from
     ``state0``) at the first call and cached on the problem."""
     problem = problem.to(state0.X.device)
-    graphs = problem.__dict__.setdefault("_solve_graphs", {})
-    key = _cache_key(settings, tridiag_backend, batched, state0)
-    if key not in graphs:
-        graphs[key] = IterationGraph(problem, settings, tridiag_backend, batched, state0,
-                                     max_iterations)
-    return graphs[key]
+    return cached(problem, (settings, tridiag_backend, batched, *state_key(state0)),
+                  lambda: IterationGraph(problem, settings, tridiag_backend, batched, state0,
+                                         max_iterations))
 
 
 def _solve_loop(problem, settings, state0, max_iterations, tridiag_backend, batched):

@@ -46,7 +46,7 @@ from typing import Any, Callable, Optional
 import torch
 from torch.func import grad, vjp
 
-from .banded import _armijo, _levenberg, _mixed_route, _scalar, _violation
+from .banded import _levenberg, _mixed_route, _scalar, _violation
 from .device import resolve_device
 from .iterate import max0
 from .kernels._build import require_full_fp32
@@ -511,6 +511,18 @@ def _kkt_solve_cg(
     return d, dlam, it_total
 
 
+def _armijo(value, base: Tensor, descent: Tensor, settings: Settings, dtype, dev,
+            max_steps: int):
+    """The reference's backtracking loop: (alpha, accepted), one host read
+    a trial; ``value(alpha)`` is the merit (or violation) at alpha."""
+    alpha = _scalar(1.0, dtype, dev)
+    for _ in range(max_steps):
+        if bool(value(alpha) <= base - settings.linesearch_eta * alpha * descent):
+            return alpha, True
+        alpha = settings.linesearch_tau * alpha
+    return _scalar(0.0, dtype, dev), False
+
+
 def _optimality_iteration(problem: SparseProblem, settings: Settings,
                           state: SparseState) -> SparseState:
     """One matrix-free SQP iteration (problem_solver/iteration.c:350 with
@@ -624,7 +636,7 @@ def _optimality_iteration(problem: SparseProblem, settings: Settings,
     tiny = (pred.abs() <= eps10) & (actual.abs() <= eps10)
     ratio = torch.where(tiny, 1.0, actual / torch.where(pred == 0.0, 1.0, pred))
 
-    reg_new = _levenberg(state.reg, ratio, accepted, REG_FAIL, REG_MAX)
+    reg_new = _levenberg(state.reg, ratio, _scalar(accepted, torch.bool, dev), REG_FAIL, REG_MAX)
     x_next = x_new if accepted else x
     lam_next = lam_qp if accepted else state.lam
 

@@ -87,14 +87,14 @@ def profile_route(ocp, X0, name):
 
     graph = ocp_module.iteration_graph(ocp, settings, s0, tridiag_backend=backend)
     graph.load(s0, 50)
-    graph.replay()
+    graph.replay("iterate")
     parts = chip_smoke.state_parts(graph.bufs["state"], iteration())
     graph.load(s0, 50)
-    replay_ms = chip_smoke.event_ms(graph.replay)
+    replay_ms = chip_smoke.event_ms(lambda: graph.replay("iterate"))
     search_ms = chip_smoke.event_ms(lambda: graph.replay("search"))
     graph.load(s0, 50)
     rows = {"eager iteration": chip_smoke.traced(iteration),
-            "graph replay": chip_smoke.traced(graph.replay)}
+            "graph replay": chip_smoke.traced(lambda: graph.replay("iterate"))}
     for label, (kernels, wall, busy) in rows.items():
         print(f"  {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
               f"{1 - busy / wall:.3f}, {kernels} kernels", flush=True)
@@ -111,7 +111,7 @@ def profile_route(ocp, X0, name):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     graph.load(s0, 50)
     with torch.profiler.profile(activities=acts) as prof:
-        graph.replay()
+        graph.replay("iterate")
         torch.cuda.synchronize()
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
     return not parts
