@@ -86,16 +86,22 @@ run from a checkout of the repository, on a machine with a CUDA device and
     seconds, the captures' memory, host reads a trip, kernels and idle
     share of a traced replay, and ms per KKT solve of the eager loop;
 13. the matrix-free sparse path (``sparse.py``): the scattered problem of
-    ``tests/test_sparse.py`` at n = 5e4 on both routes on the card and on
-    the float64 route on the CPU, and the first three iterations of HS71
-    with the PDLP Cauchy step on the card and the CPU, iterate by iterate
-    (the whole solve runs in tier-1 on the CPU); ms per iteration, host
-    reads per iteration, CG steps and ms per EQP solve;
+    ``tests/test_sparse.py`` at n = 5e4 on both routes through
+    ``sparse_solve`` (``sparse_solve_jit``: CUDA graphs, one read a block
+    of CG steps) held to ``sparse_solve_from`` (the eager loop) on the
+    card, bit for bit where two eager runs agree bit for bit, and on the
+    float64 route to the CPU; HS71 with the PDLP Cauchy step, its first
+    three iterations on the graphs, the eager loop and the CPU, and its
+    whole solve on the graphs; ms an iteration by graph and eager, ms and
+    kernels of a replay of each program, the idle share of a traced CG
+    block, warm-up and capture seconds, reserved memory, host reads an
+    iteration, CG steps and ms per EQP solve of the eager loop;
 14. the batched dense solve (``parallel/batch.py``) at ``bench.py``'s
     width: HS71 from ``bench.py``'s starts through ``batched_solve_mp``
     (``Settings(compute_dtype="float32")``) at B = 512 and 1024 and
     ``batched_solve`` (``Settings()``) at B = 1024, on the card (a warm-up
-    and three timed runs) and on the CPU (one), each lane held to the JAX
+    and one timed run; the timing repeats belong to a benchmark) and on the
+    CPU (one), each lane held to the JAX
     package's lane (``artifacts/batch_hs71_jax_cpu.json``, written by
     ``tools/batch_reference.py``); solves per second, instance-iterations
     per second, ms per lockstep trip by phase, host reads and kernels per
@@ -1562,28 +1568,127 @@ def hs71_sparse(device):
                          cons_ub=[float("inf"), 40.0], cauchy="pdlp", device=device)
 
 
-SPARSE_PDLP_ITERATIONS = 3  # phase 13's HS71 on PDLP, held iterate by iterate to the CPU
+SPARSE_N = 50_000
+SPARSE_FIELDS = tuple(f.name for f in dataclasses.fields(sparse.SparseState))
+SPARSE_PDLP_ITERATIONS = 3  # HS71 on PDLP held iterate by iterate to the CPU
 SPARSE_PDLP_TOL = 1e-12
+HS71_X0 = np.array([1.0, 5.0, 5.0, 1.0])
+HS71_X = np.array([1.0, 4.742999, 3.821151, 1.379408])  # tests/fixtures.py::hs71_problem
+# HS71 on PDLP's whole solve on the CPU: 62 iterations in the port and in
+# JAX (tests/test_torch_sparse.py::test_solve_matches_jax[hs71_pdlp])
+HS71_PDLP_CPU_ITERATIONS = 62
+
+
+def max_abs(a, b):
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def sparse_gate(tag, out, eager):
+    """Hold the graph's state ``out`` to the eager loop's states ``eager``
+    (two or more runs from the same start on the same card): bit for bit
+    where the eager runs agree bit for bit; where they part (a sum whose
+    order the card does not fix), the same status and iterations, CG steps
+    within the eager runs' spread and every field within it of an eager
+    run.  Returns (the eager runs' spread, the graph's gaps to the first),
+    by field: the largest |difference|."""
+    spread = {}
+    for i, a in enumerate(eager):
+        for b in eager[i + 1:]:
+            for f in SPARSE_FIELDS:
+                x, y = getattr(a, f), getattr(b, f)
+                if not same_bits(x, y):
+                    spread[f] = max(spread.get(f, 0.0), max_abs(x, y))
+    gaps = {f: max_abs(getattr(out, f), getattr(eager[0], f)) for f in SPARSE_FIELDS
+            if not same_bits(getattr(out, f), getattr(eager[0], f))}
+    if not spread:
+        check(not gaps, f"{tag}: the graph parts from sparse_solve_from in {gaps}")
+        return spread, gaps
+    for f in ("status", "iteration", "phase"):
+        check(all(torch.equal(getattr(out, f), getattr(e, f)) for e in eager),
+              f"{tag}: {f} parts from the eager runs")
+    far = {f: min(max_abs(getattr(out, f), getattr(e, f)) for e in eager) for f in gaps}
+    check(all(far[f] <= spread.get(f, 0.0) for f in far),
+          f"{tag}: the graph parts from every eager run by more than their spread {spread}: "
+          f"{far}")
+    return spread, gaps
+
+
+def sparse_graph_run(log, tag, problem, settings, card, x0, max_iterations):
+    """A sparse solve through ``sparse_solve_jit`` (CUDA graphs) on the
+    card, held to ``sparse_solve_from`` (the eager loop) on the same card by
+    ``sparse_gate``; the graph solved twice (the first call warms up and
+    captures), the eager loop twice (timed with its host reads counted;
+    its EQP solves timed between synchronizations, which a capture
+    forbids).  Logs ms an iteration both ways, host reads an iteration,
+    the captures' cost, ms (CUDA events, median of 5) and kernels of one
+    replay of each program from the start, and the busy ms and idle share
+    of a traced CG block.  Returns (graph state, eager state, programs)."""
+    state0 = sparse_initial_state(problem, settings, x0)
+    jit = functools.partial(sparse.sparse_solve_jit, problem, settings, state0, max_iterations)
+    out, first_s = timed(jit, card)
+    loop = sparse.solve_graphs(problem, settings, state0)
+    replays, loop_reads = dict(loop.replays), loop.reads
+    reads, (again, solve_s) = count_host_reads(lambda: timed(jit, card))
+    runs = {name: loop.replays[name] - replays[name] for name in loop.replays}
+    loop_reads = loop.reads - loop_reads
+    eager = functools.partial(sparse.sparse_solve_from, problem, settings, state0,
+                              max_iterations)
+    eager_reads, (ref, eager_s) = count_host_reads(lambda: timed(eager, card))
+    with timed_calls(sparse, "_kkt_solve_cg", card) as kkt:
+        ref2 = eager()
+    spread, gaps = sparse_gate(tag, out, [ref, ref2])
+    graph_again = {f: max_abs(getattr(again, f), getattr(out, f)) for f in SPARSE_FIELDS
+                   if not same_bits(getattr(again, f), getattr(out, f))}
+    iterations, cg = int(out.iteration), int(out.cg_iterations)
+    kkt_ms = 1e3 * sum(kkt.seconds) / max(len(kkt.seconds), 1)
+    programs = {}
+    for name in loop.programs:
+        loop.load(state0, max_iterations)
+        ms = event_ms(lambda: loop.replay(name))
+        kernels, wall, busy = traced(lambda: loop.replay(name))
+        programs[name] = (ms, kernels, wall, busy)
+    cg_name = "opt.cg32" if "opt.cg32" in programs else "opt.cg"
+    cg_ms, cg_kernels, cg_wall, cg_busy = programs[cg_name]
+    log(13, f"{tag} through sparse_solve_jit (CUDA graphs) against sparse_solve_from on the "
+            f"card: {solve_summary(out)}; CG steps {cg} ({cg / max(len(kkt.seconds), 1):.1f} per "
+            f"EQP solve); ms an iteration: graph {1e3 * solve_s / max(iterations, 1):.3f}, eager "
+            f"{1e3 * eager_s / max(iterations, 1):.3f} ({eager_s / solve_s:.2f}x); solve s: graph "
+            f"{solve_s:.3f} (first call {first_s:.3f}: warm-up {loop.warmup_s:.3f}, capture and "
+            f"instantiation {loop.capture_s:.3f}, memory reserved by the captures "
+            f"{loop.reserved_bytes / 2**20:.1f} MiB), eager {eager_s:.3f}; host reads: graph "
+            f"{reads} ({reads / max(iterations, 1):.2f} an iteration, one before the first), "
+            f"eager {eager_reads} ({eager_reads / max(iterations, 1):.2f}); replays {runs}; one "
+            f"replay from the start, ms (CUDA events, median of 5) and kernels: "
+            + ", ".join(f"{n} {ms:.3f} ms {k}" for n, (ms, k, _, _) in programs.items())
+            + f"; traced {cg_name}: {cg_kernels} kernels ({cg_kernels / sparse.CG_BLOCK:.1f} a "
+            f"CG step with the operator's rebuild), device busy {cg_busy:.3f} ms, idle share "
+            f"{1 - cg_busy / cg_ms:.3f} of the untraced replay ({1 - cg_busy / cg_wall:.3f} of the "
+            f"traced {cg_wall:.3f} ms); eager loop CG {kkt_ms:.2f} ms per EQP solve "
+            f"({1e3 * sum(kkt.seconds) / max(cg, 1):.3f} ms per CG step); eager against eager: "
+            + ("bit for bit" if not spread else f"fields part, largest |difference| {spread}")
+            + "; graph against the first eager run: "
+            + ("bit for bit" if not gaps else f"{gaps}")
+            + "; second graph solve against the first: "
+            + ("bit for bit" if not graph_again else f"{graph_again}")
+            + f"; active rows {int((out.act_low | out.act_up).sum())}; card '{card_line()}'")
+    check(reads == loop_reads, f"{tag}: {reads} host synchronizations, the loop's own reads "
+                               f"{loop_reads}")
+    check(reads <= eager_reads, f"{tag}: {reads} host reads on the graphs, {eager_reads} eager")
+    return out, ref, loop, solve_s
 
 
 def sparse_phase(log, card="cuda"):
-    """Phase 13 (``card="cpu"`` rehearses it)."""
-    n = 50_000
+    """Phase 13 (``card="cpu"`` rehearses it, with ``event_ms``, ``traced``,
+    ``count_host_reads`` and ``card_line`` stubbed)."""
+    n = SPARSE_N
     problem = scattered_problem(n, card)
+    x0 = torch.zeros((n,), dtype=torch.float64, device=card)
     for route, cd in ROUTE_SETTINGS.items():
         settings = Settings(compute_dtype=cd)
-        out, seconds, reads, kkt = measured_solve(
-            lambda: sparse_solve(problem, settings, max_iterations=100), card, sparse,
-            "_kkt_solve_cg")
-        iters, cg = int(out.iteration), int(out.cg_iterations)
-        kkt_ms = 1e3 * sum(kkt) / max(len(kkt), 1) if kkt else float("nan")
+        tag = f"sparse scattered n = {n}, m = {n // 10} ({route})"
+        out, _, _, seconds = sparse_graph_run(log, tag, problem, settings, card, x0, 100)
+        iters = int(out.iteration)
         lam, act = out.lam, out.act_low | out.act_up
-        log(13, f"sparse scattered n = {n}, m = {n // 10} ({route}): {solve_summary(out)}; "
-                f"CG steps {cg} ({cg / max(len(kkt or [iters]), 1):.1f} per EQP solve); card "
-                f"{seconds:.3f} s, {1e3 * seconds / max(iters, 1):.2f} ms per iteration, host "
-                f"reads {reads} ({reads / max(iters, 1):.1f} per iteration), CG {kkt_ms:.2f} ms "
-                f"per EQP solve ({1e3 * sum(kkt or [0.0]) / max(cg, 1):.3f} ms per CG step); "
-                f"active rows {int(act.sum())}")
         check(int(out.status) == Status.OPTIMAL, f"sparse scattered {route}: not OPTIMAL")
         check(float(out.feas_res) <= 1e-6 and float(out.stat_res) <= 1e-6,
               f"sparse scattered {route}: residuals")
@@ -1599,7 +1704,7 @@ def sparse_phase(log, card="cuda"):
             log(13, f"sparse scattered n = {n} (float64) on the CPU: {solve_summary(ref)}; CG "
                     f"steps {int(ref.cg_iterations)}; {cpu_s:.3f} s, "
                     f"{1e3 * cpu_s / max(int(ref.iteration), 1):.2f} ms per iteration; max "
-                    f"|x_card - x_cpu| {dx:.3e}; card / CPU time {seconds / cpu_s:.3f}")
+                    f"|x_card - x_cpu| {dx:.3e}; card (graph) / CPU time {seconds / cpu_s:.3f}")
             check(int(ref.status) == Status.OPTIMAL and int(ref.iteration) == iters,
                   "sparse scattered float64: the CPU solve differs from the card's")
             check(dx <= 1e-6, f"sparse scattered float64: x differs from the CPU's by {dx:.3e}")
@@ -1608,34 +1713,70 @@ def sparse_phase(log, card="cuda"):
 
 
 def sparse_pdlp_phase(log, card="cuda"):
-    """Phase 13, continued: HS71 on the matrix-free PDLP Cauchy step, its
-    first SPARSE_PDLP_ITERATIONS iterations on ``card`` and on the CPU, each
-    iterate's state held to the CPU's.  The whole solve (~36 000 PDHG
-    iterations, 75-85 s of the card's time) left the script
-    for the batched routes' runs; it runs whole in tier-1 on the CPU
-    (tests/test_torch_sparse.py, "hs71_pdlp")."""
+    """Phase 13, continued: HS71 on the matrix-free PDLP Cauchy step.  Its
+    first SPARSE_PDLP_ITERATIONS iterations through ``sparse_solve_jit``,
+    held to the eager loop on the card by ``sparse_gate`` and to the CPU's
+    state; the eager loop's iterates each held to the CPU's; then the whole
+    solve through ``sparse_solve``: OPTIMAL in the CPU's iterations, x at
+    HS71's optimum."""
     hs71, hs71_cpu = hs71_sparse(card), hs71_sparse("cpu")
-    x0 = np.array([1.0, 5.0, 5.0, 1.0])
-    out, ref = sparse_initial_state(hs71, Settings(), x0), sparse_initial_state(hs71_cpu,
-                                                                              Settings(), x0)
+    settings = Settings()
+    s0 = sparse_initial_state(hs71, settings, HS71_X0)
+    out, ref = s0, sparse_initial_state(hs71_cpu, settings, HS71_X0)
     gaps, seconds, reads = [], 0.0, 0
     for _ in range(SPARSE_PDLP_ITERATIONS):
         synchronize(card)
         t = time.perf_counter()
-        n_reads, out = count_host_reads(lambda: sparse_perform_iteration(hs71, Settings(), out))
+        n_reads, out = count_host_reads(lambda: sparse_perform_iteration(hs71, settings, out))
         synchronize(card)
         seconds += time.perf_counter() - t
         reads += n_reads
-        ref = sparse_perform_iteration(hs71_cpu, Settings(), ref)
+        ref = sparse_perform_iteration(hs71_cpu, settings, ref)
         gap = field_mismatches(flat_fields(to_cpu(out)), flat_fields(ref), SPARSE_PDLP_TOL)
         gaps.append(float((out.x.cpu() - ref.x).abs().max()))
         check(not gap, f"sparse HS71 (cauchy='pdlp') iteration {len(gaps)}: the card's state "
                        f"parts from the CPU's by more than {SPARSE_PDLP_TOL}: {gap}")
+    eager = dataclasses.replace(out, status=torch.full_like(out.status, int(Status.ABORT_ITER)))
+    jit = functools.partial(sparse.sparse_solve_jit, hs71, settings, s0, SPARSE_PDLP_ITERATIONS)
+    got, first_s = timed(jit, card)
+    graph_reads, (got2, graph_s) = count_host_reads(lambda: timed(jit, card))
+    _, graph_gaps = sparse_gate("sparse HS71 (cauchy='pdlp'), first iterations", got, [eager])
+    again = [f for f in SPARSE_FIELDS if not same_bits(getattr(got2, f), getattr(got, f))]
+    cpu_end = dataclasses.replace(ref, status=torch.full_like(ref.status, int(Status.ABORT_ITER)))
+    gap = field_mismatches(flat_fields(to_cpu(got)), flat_fields(cpu_end), SPARSE_PDLP_TOL)
+    check(not gap, f"sparse HS71 (cauchy='pdlp'): the graph's state after "
+                   f"{SPARSE_PDLP_ITERATIONS} iterations parts from the CPU's: {gap}")
+    loop = sparse.solve_graphs(hs71, settings, s0)
     log(13, f"sparse HS71 (cauchy='pdlp'), its first {SPARSE_PDLP_ITERATIONS} iterations: "
-            f"{solve_summary(out)}; card {seconds:.3f} s with the reads counted, "
-            f"{1e3 * seconds / SPARSE_PDLP_ITERATIONS:.2f} ms per iteration, host reads {reads} "
-            f"({reads / SPARSE_PDLP_ITERATIONS:.1f} per iteration); each iterate's state within "
-            f"{SPARSE_PDLP_TOL} of the CPU's (x {', '.join(f'{g:.2e}' for g in gaps)})")
+            f"{solve_summary(got)}; eager {seconds:.3f} s with the reads counted, "
+            f"{1e3 * seconds / SPARSE_PDLP_ITERATIONS:.2f} ms per iteration, host reads {reads}; "
+            f"graph {graph_s:.3f} s (first call {first_s:.3f}: warm-up {loop.warmup_s:.3f}, "
+            f"capture {loop.capture_s:.3f}), host reads {graph_reads}; graph against the eager "
+            f"loop: " + ("bit for bit" if not graph_gaps else f"{graph_gaps}")
+            + "; second graph solve against the first: "
+            + ("bit for bit" if not again else f"fields part {again}")
+            + f"; each eager iterate's state and the graph's last within {SPARSE_PDLP_TOL} of "
+            f"the CPU's (x {', '.join(f'{g:.2e}' for g in gaps)})")
+
+    # the whole solve, through the graphs only (its eager loop takes 50-83 s)
+    whole, whole_s = timed(lambda: sparse_solve(hs71, settings, x0=HS71_X0, max_iterations=100),
+                           card)
+    blocks = loop.replays["opt.lp_block"] + loop.replays["opt.lp_tail"]
+    lp_ms = event_ms(lambda: loop.replay("opt.lp_block"))
+    lp_kernels, lp_wall, lp_busy = traced(lambda: loop.replay("opt.lp_block"))
+    dx = float(np.abs(whole.x.cpu().numpy() - HS71_X).max())
+    log(13, f"sparse HS71 (cauchy='pdlp'), the whole solve through sparse_solve (CUDA graphs): "
+            f"{solve_summary(whole)}; {whole_s:.3f} s (the eager loop: 50-83 s in earlier "
+            f"runs), {1e3 * whole_s / max(int(whole.iteration), 1):.2f} ms per iteration; PDHG "
+            f"blocks replayed over the phase {blocks}; one opt.lp_block replay (64 PDHG "
+            f"iterations) {lp_ms:.3f} ms, {lp_kernels} kernels, device busy {lp_busy:.3f} ms, "
+            f"idle share {1 - lp_busy / lp_ms:.3f}; max |x - x*| {dx:.2e}; CPU iterations "
+            f"{HS71_PDLP_CPU_ITERATIONS}")
+    check(int(whole.status) == Status.OPTIMAL, "sparse HS71 (cauchy='pdlp'): not OPTIMAL")
+    check(int(whole.iteration) == HS71_PDLP_CPU_ITERATIONS,
+          f"sparse HS71 (cauchy='pdlp'): {int(whole.iteration)} iterations, the CPU "
+          f"{HS71_PDLP_CPU_ITERATIONS}")
+    check(dx <= 1e-5, f"sparse HS71 (cauchy='pdlp'): x {dx:.2e} from HS71's optimum")
 
 
 # Phase 14: the batched dense solve (parallel/batch.py) at bench.py's width:
@@ -2055,7 +2196,9 @@ def batch_phase(log, card="cuda"):
                 entry = pb.batched_solve_mp(problem, Settings(compute_dtype="float32"),
                                             batch_starts(batch), max_iterations=BATCH_MAX_IT,
                                             device=device)
-            timed = [batch_run(name, batch, device) for _ in range(3 if on_card else 1)]
+            elif on_card:
+                batch_run(name, batch, device)  # the warm-up run
+            timed = [batch_run(name, batch, device)]
             got = timed[-1]
             if name == "mp" and on_card:
                 # ... and its two phases, timed one by one, give its lanes

@@ -18,7 +18,8 @@ float64 block Thomas or the float32 scan with refinement; like the OCP
 solve, its loop runs as CUDA graphs with one host read an iteration,
 ``graphs.py``) and general
 sparse NLPs matrix-free (``sparse.py``: reverse-mode products and
-conjugate gradients), with the PDLP Cauchy LP on operators that never
+conjugate gradients, its loop as CUDA graphs with one read a block of CG
+steps or PDHG iterations), with the PDLP Cauchy LP on operators that never
 materialize the Jacobian.  The front ends are the scipy-style
 ``minimize`` (``minimize.py``), the AMPL ``.nl`` reader
 (``harness/ampl.py``), checkpoints of a solver state (``checkpoint.py``),
@@ -45,7 +46,7 @@ from .problem_solver import SolverState, initial_state, perform_iteration, solve
 from .scale import ScaledProblem, Scaling, derive_scaling
 from .settings import Settings, read_settings_file, read_settings_string
 from .solver import Solver, SolverEvent
-from .sparse import SparseProblem, sparse_solve
+from .sparse import SparseProblem, sparse_solve, sparse_solve_from, sparse_solve_jit
 from .types import (
     ActiveState,
     AugJacMethod,
@@ -119,6 +120,8 @@ __all__ = [
     "read_settings_string",
     "solve",
     "sparse_solve",
+    "sparse_solve_from",
+    "sparse_solve_jit",
 ]
 
 

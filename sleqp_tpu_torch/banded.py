@@ -69,23 +69,21 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.func import grad, vjp, vmap
 
+from . import graphs
 from .device import resolve_device
-from .graphs import LAUNCHES as _LAUNCHES
-from .graphs import RUNNING, SEARCHING, Programs, cached, state_key
-from .graphs import captured as _captured
-from .graphs import on_graphs as _on_graphs
+from .graphs import RESTORING, RUNNING, SEARCHING, Programs, cached, loop_flag, running, state_key
 from .iterate import max0
 from .kernels._build import require_full_fp32
-from .lanes import device_resident, is_device_resident, lanes_any, lockstep, tree_map, tree_where
+from .lanes import device_resident, is_device_resident, lanes_any, tree_map, tree_where
 from .ops import pdlp
 from .ops.block_tridiag import block_tridiag_solve
 from .ops.pallas_tridiag import block_tridiag_solve_mp
 from .settings import Settings
+from .sqp_steps import armijo, armijo_start, levenberg, mixed_route, scalar, trial_point
 from .types import DTYPE_MISMATCH, INF_THRESHOLD, ActiveState, HessEval, SolverPhase, Status
 
 Tensor = torch.Tensor
 
-REG_MIN = 1e-10
 REG_MAX = 1e10
 REG_FAIL = 1e-4
 MAX_LINESEARCH_STEPS = 30
@@ -117,11 +115,6 @@ def _unit_cotangents(width: int, blocks: int, dtype, device) -> Tensor:
     """(width, blocks, width): the i-th slice sets e_i on every block."""
     eye = torch.eye(width, dtype=dtype, device=device)
     return eye[:, None, :].expand(width, blocks, width)
-
-
-def _scalar(value, dtype, device) -> Tensor:
-    # a fill, not a copy from the host: no synchronization on the card
-    return torch.full((), value, dtype=dtype, device=device)
 
 
 class BandedProblem:
@@ -378,7 +371,7 @@ def banded_cauchy(
     op = BandedCauchyOp(Jl, Jr)
     n, m = op.n, op.m_rows
 
-    big = _scalar(1e20, dtype, dev)
+    big = scalar(1e20, dtype, dev)
     x_flat = X.reshape(-1)
     vlb = problem.var_lb.reshape(-1)
     vub = problem.var_ub.reshape(-1)
@@ -499,19 +492,19 @@ def banded_initial_state(
         lam=lam,
         act_low=act_low,
         act_up=act_up,
-        penalty=_scalar(10.0, dtype, dev),
-        reg=_scalar(1e-8, dtype, dev),
-        iteration=_scalar(0, torch.int32, dev),
-        status=_scalar(int(Status.RUNNING), torch.int32, dev),
-        num_accepted=_scalar(0, torch.int32, dev),
-        num_rejected=_scalar(0, torch.int32, dev),
+        penalty=scalar(10.0, dtype, dev),
+        reg=scalar(1e-8, dtype, dev),
+        iteration=scalar(0, torch.int32, dev),
+        status=scalar(int(Status.RUNNING), torch.int32, dev),
+        num_accepted=scalar(0, torch.int32, dev),
+        num_rejected=scalar(0, torch.int32, dev),
         obj_val=problem.obj(X),
-        feas_res=_scalar(math.inf, dtype, dev),
-        stat_res=_scalar(math.inf, dtype, dev),
-        last_ratio=_scalar(0.0, dtype, dev),
-        last_alpha=_scalar(0.0, dtype, dev),
-        phase=_scalar(int(SolverPhase.OPTIMIZATION), torch.int32, dev),
-        bad_steps=_scalar(0, torch.int32, dev),
+        feas_res=scalar(math.inf, dtype, dev),
+        stat_res=scalar(math.inf, dtype, dev),
+        last_ratio=scalar(0.0, dtype, dev),
+        last_alpha=scalar(0.0, dtype, dev),
+        phase=scalar(int(SolverPhase.OPTIMIZATION), torch.int32, dev),
+        bad_steps=scalar(0, torch.int32, dev),
         qn_B=(torch.eye(k, dtype=dtype, device=dev).expand(problem.N_b, k, k).clone()
               if use_qn else empty),
         qn_prev_X=qn((problem.N_b, k)),
@@ -620,21 +613,6 @@ def _prev_jtvp(problem, Jl: Tensor, Jr: Tensor, lam: Tensor) -> Tensor:
                       torch.einsum("tqk,tq->tk", Jr, lam))
 
 
-def _mixed_route(settings: Settings, dtype) -> bool:
-    return settings.compute_dtype == "float32" and dtype == torch.float64
-
-
-def _levenberg(reg: Tensor, ratio: Tensor, accepted: Tensor, reg_fail: float = REG_FAIL,
-               reg_max: float = REG_MAX) -> Tensor:
-    """The Levenberg update on the trust_radius.c:47-84 thresholds
-    (``accepted``: a 0-d bool tensor)."""
-    up = torch.where(
-        ratio >= 0.9, torch.clamp(reg / 7.0, min=REG_MIN),
-        torch.where(ratio >= 0.3, torch.clamp(reg / 2.0, min=REG_MIN), reg))
-    return torch.where(accepted, up, torch.clamp(torch.clamp(10.0 * reg, min=reg_fail),
-                                                 max=reg_max))
-
-
 class _OptSearch(NamedTuple):
     """What an optimality iteration's linesearch and update take from its
     first part (derivatives, working set, stop test, EQP step, penalty)."""
@@ -672,29 +650,6 @@ class _RestSearch(NamedTuple):
     feas_res: Tensor
 
 
-def _trial_point(problem, s, alpha: Tensor) -> Tensor:
-    return problem.clip(s.X + alpha * s.d)
-
-
-def _armijo_start(s):
-    """(alpha, accepted) before the first Armijo trial."""
-    return torch.ones_like(s.base), torch.zeros_like(s.has_descent)
-
-
-def _armijo(problem, settings: Settings, trial, s, carry, trips: int, first=None):
-    """Up to ``trips`` backtracking trials of the Armijo rule from ``carry``
-    (``lockstep``: one read a trial, or ``trips`` masked trials under
-    device_resident); ``trial(problem, s, alpha)`` is the merit (or
-    violation) at alpha."""
-
-    def step(carry, trip):
-        alpha, _ = carry
-        ok = trial(problem, s, alpha) <= s.base - settings.linesearch_eta * alpha * s.descent
-        return torch.where(ok, alpha, settings.linesearch_tau * alpha), ok
-
-    return lockstep(lambda c: s.has_descent & ~c[1], step, carry, max_trips=trips, first=first)
-
-
 def _stopped(state: BandedState, optimal: Tensor, feas_res: Tensor,
              stat_res: Tensor) -> BandedState:
     """The state of a solve that stops here: OPTIMAL or a dead point."""
@@ -714,7 +669,7 @@ def _opt_search(problem: BandedProblem, settings: Settings, state: BandedState):
 
     # mixed configuration: float32 derivative assembly, float64 solve,
     # merit and residuals
-    mixed = _mixed_route(settings, dtype)
+    mixed = mixed_route(settings, dtype)
     cd = torch.float32 if mixed else None
     g = problem.obj_grad(X)
     C = problem.cons(X)
@@ -815,7 +770,7 @@ def _opt_search(problem: BandedProblem, settings: Settings, state: BandedState):
 
 def _opt_trial(problem, s: _OptSearch, alpha: Tensor) -> Tensor:
     """The l1 merit at the trial point of step length alpha."""
-    Xa = _trial_point(problem, s, alpha)
+    Xa = trial_point(problem, s, alpha)
     return problem.obj(Xa) + s.penalty * _violation(problem, problem.cons(Xa)).sum()
 
 
@@ -830,14 +785,14 @@ def _opt_finish(problem, settings: Settings, state: BandedState, s: _OptSearch,
     alpha = torch.where(accepted, carry[0], 0.0)
 
     merit_trial = _opt_trial(problem, s, alpha)
-    X_new = _trial_point(problem, s, alpha)
+    X_new = trial_point(problem, s, alpha)
     pred = alpha * s.descent - 0.5 * alpha**2 * s.dHd
     actual = s.base - merit_trial
     eps10 = 10.0 * torch.finfo(dtype).eps * (1.0 + s.base.abs())
     tiny = (pred.abs() <= eps10) & (actual.abs() <= eps10)
     ratio = torch.where(tiny, 1.0, actual / torch.where(pred == 0.0, 1.0, pred))
 
-    reg_new = _levenberg(state.reg, ratio, accepted)
+    reg_new = levenberg(state.reg, ratio, accepted, REG_FAIL, REG_MAX)
     X_next = torch.where(accepted, X_new, s.X)
     # delta form: the multiplier estimate moves with the iterate; a
     # rejected step keeps the old duals
@@ -873,7 +828,7 @@ def _opt_finish(problem, settings: Settings, state: BandedState, s: _OptSearch,
         penalty=s.penalty,
         reg=reg_next,
         iteration=state.iteration + 1,
-        status=_scalar(int(Status.RUNNING), torch.int32, dev),
+        status=scalar(int(Status.RUNNING), torch.int32, dev),
         num_accepted=state.num_accepted + accepted.to(torch.int32),
         num_rejected=state.num_rejected + (~accepted).to(torch.int32),
         obj_val=problem.obj(X_next),
@@ -902,7 +857,7 @@ def _rest_search(problem: BandedProblem, settings: Settings, state: BandedState)
     dtype, dev = problem.dtype, state.X.device
     X = state.X
     N_b, k = problem.N_b, problem.k
-    mixed = _mixed_route(settings, dtype)
+    mixed = mixed_route(settings, dtype)
     cd = torch.float32 if mixed else None
     C = problem.cons(X)
     viol = _violation(problem, C)
@@ -934,7 +889,7 @@ def _rest_search(problem: BandedProblem, settings: Settings, state: BandedState)
 
 def _rest_trial(problem, s: _RestSearch, alpha: Tensor) -> Tensor:
     """The l1 violation at the trial point of step length alpha."""
-    return _violation(problem, problem.cons(_trial_point(problem, s, alpha))).sum()
+    return _violation(problem, problem.cons(trial_point(problem, s, alpha))).sum()
 
 
 def _rest_finish(problem, settings: Settings, state: BandedState, s: _RestSearch,
@@ -947,13 +902,13 @@ def _rest_finish(problem, settings: Settings, state: BandedState, s: _RestSearch
     accepted = carry[1] & s.has_descent
     alpha = torch.where(accepted, carry[0], 0.0)
     phi_new = _rest_trial(problem, s, alpha)
-    X_new = _trial_point(problem, s, alpha)
+    X_new = trial_point(problem, s, alpha)
 
     pred = alpha * s.descent
     eps10 = 10.0 * torch.finfo(problem.dtype).eps * (1.0 + s.base.abs())
     tiny = (pred.abs() <= eps10) & ((s.base - phi_new).abs() <= eps10)
     ratio = torch.where(tiny, 1.0, (s.base - phi_new) / torch.where(pred == 0.0, 1.0, pred))
-    reg_new = _levenberg(state.reg, ratio, accepted)
+    reg_new = levenberg(state.reg, ratio, accepted, REG_FAIL, REG_MAX)
 
     X_next = torch.where(accepted, X_new, s.X)
     feas_new = max0(_violation(problem, problem.cons(X_next)))
@@ -964,7 +919,7 @@ def _rest_finish(problem, settings: Settings, state: BandedState, s: _RestSearch
         penalty=torch.where(restored, 10.0 * state.penalty, state.penalty),
         reg=torch.where(restored, 1e-8, reg_new),
         iteration=state.iteration + 1,
-        status=_scalar(int(Status.RUNNING), torch.int32, dev),
+        status=scalar(int(Status.RUNNING), torch.int32, dev),
         num_accepted=state.num_accepted + accepted.to(torch.int32),
         num_rejected=state.num_rejected + (~accepted).to(torch.int32),
         obj_val=problem.obj(X_next),
@@ -973,12 +928,12 @@ def _rest_finish(problem, settings: Settings, state: BandedState, s: _RestSearch
         last_alpha=alpha,
         phase=torch.where(restored, int(SolverPhase.OPTIMIZATION),
                           int(SolverPhase.RESTORATION)).to(torch.int32),
-        bad_steps=_scalar(0, torch.int32, dev),
+        bad_steps=scalar(0, torch.int32, dev),
         qn_pending=torch.zeros((), dtype=torch.bool, device=dev),  # the pair straddles a phase jump
     )
     # local-infeasibility certificate: GN on the violation cannot move
     certified = ~restored & (state.reg >= REG_MAX)
-    stopped = dataclasses.replace(state, status=_scalar(int(Status.INFEASIBLE), torch.int32, dev),
+    stopped = dataclasses.replace(state, status=scalar(int(Status.INFEASIBLE), torch.int32, dev),
                                   feas_res=s.feas_res)
     return tree_where(certified, stopped, running)
 
@@ -998,9 +953,9 @@ def _iterate(problem, settings, state, phase: int) -> BandedState:
     s = search(problem, settings, state)
     if isinstance(s, BandedState):
         return s
-    carry = _armijo_start(s)
+    carry = armijo_start(s)
     if lanes_any(s.has_descent):
-        carry = _armijo(problem, settings, trial, s, carry, MAX_LINESEARCH_STEPS,
+        carry = armijo(problem, settings, trial, s, carry, MAX_LINESEARCH_STEPS,
                         first=s.has_descent)
     return finish(problem, settings, state, s, carry)
 
@@ -1034,7 +989,7 @@ def banded_solve_from(problem: BandedProblem, settings: Settings, state0: Banded
         iteration += 1
         status, phase = torch.stack([state.status, state.phase]).tolist()
     if status == Status.RUNNING:
-        state = dataclasses.replace(state, status=_scalar(int(Status.ABORT_ITER), torch.int32, dev))
+        state = dataclasses.replace(state, status=scalar(int(Status.ABORT_ITER), torch.int32, dev))
     return state
 
 
@@ -1051,19 +1006,8 @@ TRIAL_BLOCK = 11
 _BLOCKS, _LEFT = divmod(MAX_LINESEARCH_STEPS - GRAPH_TRIALS, TRIAL_BLOCK)
 assert _LEFT == 0, "the trial blocks must end at the linesearch's cap"
 
-RESTORING = 4  # flag bit beside graphs.RUNNING and SEARCHING: the next iteration restores
 # the prefix of each phase's programs and buffers
 _PROGRAM = {SolverPhase.OPTIMIZATION: "opt", SolverPhase.RESTORATION: "rest"}
-
-
-def _running(state: BandedState, max_iterations: Tensor) -> Tensor:
-    return (state.status == int(Status.RUNNING)) & (state.iteration < max_iterations)
-
-
-def _flag(state: BandedState, max_iterations: Tensor, searching=None) -> Tensor:
-    bits = (_running(state, max_iterations).to(torch.int32)
-            + RESTORING * (state.phase == int(SolverPhase.RESTORATION)).to(torch.int32))
-    return bits if searching is None else bits + SEARCHING * searching.to(torch.int32)
 
 
 def _phase_programs(problem, settings, phase: SolverPhase) -> dict:
@@ -1084,27 +1028,27 @@ def _phase_programs(problem, settings, phase: SolverPhase) -> dict:
 
     def iterate(b):
         state, max_it = b["state"], b["max_it"]
-        run = _running(state, max_it)
+        run = running(state, max_it)
         with device_resident():
             s = search(problem, settings, state)
-            carry = _armijo(problem, settings, trial, s, _armijo_start(s), GRAPH_TRIALS,
+            carry = armijo(problem, settings, trial, s, armijo_start(s), GRAPH_TRIALS,
                             first=s.has_descent)
             out = finish(problem, settings, state, s, carry)
         searching = run & s.has_descent & ~carry[1]
         # a state that does not run, or whose linesearch goes on, stays
         out = tree_where(run & ~searching, out, state)
-        return {"state": out, s_buf: s, carry_buf: carry, "flag": _flag(out, max_it, searching)}
+        return {"state": out, s_buf: s, carry_buf: carry, "flag": loop_flag(out, max_it, searching)}
 
     def search_block(b):
         s = b[s_buf]
         with device_resident():
-            carry = _armijo(problem, settings, trial, s, b[carry_buf], TRIAL_BLOCK)
+            carry = armijo(problem, settings, trial, s, b[carry_buf], TRIAL_BLOCK)
         return {carry_buf: carry, "flag": SEARCHING * (s.has_descent & ~carry[1]).to(torch.int32)}
 
     def finish_step(b):
         with device_resident():
             out = finish(problem, settings, b["state"], b[s_buf], b[carry_buf])
-        return {"state": out, "flag": _flag(out, b["max_it"])}
+        return {"state": out, "flag": loop_flag(out, b["max_it"])}
 
     return {f"{name}.iterate": iterate, f"{name}.search": search_block,
             f"{name}.finish": finish_step}
@@ -1134,7 +1078,7 @@ def solve_graphs(problem: BandedProblem, settings: Settings, state0: BandedState
                   **_phase_programs(problem, settings, SolverPhase.RESTORATION)}
         bufs = dict(state=tree_map(torch.clone, state0),
                     max_it=torch.full((), max_iterations, dtype=torch.int32, device=dev))
-        return Programs(bodies, bufs, _on_graphs(dev), _captured, _LAUNCHES,
+        return Programs(bodies, bufs, graphs.on_graphs(dev), graphs.captured, graphs.LAUNCHES,
                         hint=_capture_hint(problem))
 
     return cached(problem, (settings, *state_key(state0)), make)
@@ -1155,15 +1099,15 @@ def banded_solve_jit(problem: BandedProblem, settings: Settings, state0: BandedS
     ``banded_solve_from``'s, bit for bit.  A capture that fails raises."""
     if state0.X.device.type == "cuda":
         require_full_fp32()
-    graphs = solve_graphs(problem, settings, state0, max_iterations)
-    graphs.load(state0, max_iterations)
-    flag = graphs.read(_flag(state0, graphs.bufs["max_it"]))
+    loop = solve_graphs(problem, settings, state0, max_iterations)
+    loop.load(state0, max_iterations)
+    flag = loop.read(loop_flag(state0, loop.bufs["max_it"]))
     while flag & RUNNING:
         name = _PROGRAM[SolverPhase.RESTORATION if flag & RESTORING else SolverPhase.OPTIMIZATION]
         programs = (f"{name}.iterate", f"{name}.search", f"{name}.finish")
-        graphs.prepare(*programs)
-        flag = graphs.step(*programs, _BLOCKS)
-    state = graphs.result()
+        loop.prepare(*programs)
+        flag = loop.step(*programs, _BLOCKS)
+    state = loop.result()
     status = torch.where(state.status == int(Status.RUNNING), int(Status.ABORT_ITER), state.status)
     return dataclasses.replace(state, status=status.to(torch.int32))
 

@@ -14,7 +14,10 @@ its results replace the buffers, with the same reads.
 An iteration whose Armijo linesearch outlasts the trials inside the
 iteration's own program is finished by two more: one that runs a block of
 trials while a lane still searches (bit ``SEARCHING`` of the flag) and one
-that takes the step (``Programs.step``).
+that takes the step (``Programs.step``).  A loop inside an iteration that is
+too long to run masked in one graph (the sparse solve's CG and PDHG) is a
+program of one block, run again while its bit of the flag is set
+(``Programs.repeat``).
 """
 
 from __future__ import annotations
@@ -26,10 +29,15 @@ import torch
 
 from .lanes import tree_leaves, tree_map
 from .ops import cyclic_reduction, pallas_chol_tridiag, pallas_tridiag
+from .types import SolverPhase, Status
 
-# flag bits: a lane still runs; a lane's linesearch goes on
+# flag bits: a lane still runs; a lane's linesearch goes on; the next
+# iteration restores; a CG solve goes on; a PDHG solve goes on
 RUNNING = 1
 SEARCHING = 2
+RESTORING = 4
+CG = 8
+LP = 16
 
 # the kernels' launch counts (by kernel name), which a capture corrects
 LAUNCHES = (cyclic_reduction.LAUNCHES, pallas_tridiag.LAUNCHES, pallas_chol_tridiag.LAUNCHES)
@@ -174,6 +182,17 @@ class Programs:
         """The one host read after a program."""
         return self.read(self.bufs["flag"])
 
+    def repeat(self, name: str, bit: int, runs: int) -> int:
+        """At most ``runs`` runs of ``name``, a read after each, while the
+        flag has ``bit``.  Returns the last flag."""
+        flag = bit
+        for _ in range(runs):
+            self.replay(name)
+            flag = self.flag()
+            if not flag & bit:
+                break
+        return flag
+
     def step(self, iterate: str, search: str, finish: str, blocks: int) -> int:
         """One iteration: ``iterate`` and a read; while its flag says a
         linesearch goes on, at most ``blocks`` runs of ``search`` (a read
@@ -181,10 +200,7 @@ class Programs:
         self.replay(iterate)
         flag = self.flag()
         if flag & SEARCHING:
-            for _ in range(blocks):
-                self.replay(search)
-                if not self.flag() & SEARCHING:
-                    break
+            self.repeat(search, SEARCHING, blocks)
             self.replay(finish)
             flag = self.flag()
         return flag
@@ -194,6 +210,19 @@ class Programs:
         them)."""
         state = self.bufs["state"]
         return tree_map(torch.clone, state) if self.cuda else state
+
+
+def running(state: Any, max_iterations: torch.Tensor) -> torch.Tensor:
+    """Whether a solve's state still iterates (RUNNING, below the limit)."""
+    return (state.status == int(Status.RUNNING)) & (state.iteration < max_iterations)
+
+
+def loop_flag(state: Any, max_iterations: torch.Tensor, searching=None) -> torch.Tensor:
+    """The flag of a two-phase loop after an iteration: RUNNING, RESTORING
+    when the next iteration restores, and SEARCHING where given."""
+    bits = (running(state, max_iterations).to(torch.int32)
+            + RESTORING * (state.phase == int(SolverPhase.RESTORATION)).to(torch.int32))
+    return bits if searching is None else bits + SEARCHING * searching.to(torch.int32)
 
 
 def cached(problem: Any, key: tuple, make: Callable[[], Programs]) -> Programs:

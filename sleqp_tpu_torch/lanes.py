@@ -85,12 +85,14 @@ def read_flag(flag: Tensor) -> bool:
 
 
 def tree_leaves(tree: Any) -> list:
-    """The tensors of a state (tensors, tuples and dataclasses of them), in
-    field order."""
+    """The tensors of a state (tensors, and tuples, dicts and dataclasses of
+    them), in field order."""
     if isinstance(tree, Tensor):
         return [tree]
     if isinstance(tree, tuple):
         return [t for v in tree for t in tree_leaves(v)]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
     return [t for f in dataclasses.fields(tree) for t in tree_leaves(getattr(tree, f.name))]
 
 
@@ -107,6 +109,8 @@ def tree_unflatten(like: Any, leaves) -> Any:
         return next(leaves)
     if isinstance(like, tuple):
         return _same_tuple(like, [tree_unflatten(v, leaves) for v in like])
+    if isinstance(like, dict):
+        return {k: tree_unflatten(v, leaves) for k, v in like.items()}
     return type(like)(**{f.name: tree_unflatten(getattr(like, f.name), leaves)
                          for f in dataclasses.fields(like)})
 

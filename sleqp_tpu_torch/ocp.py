@@ -64,11 +64,9 @@ import torch
 from torch.func import grad, jacrev, vjp, vmap
 from torch.nn.functional import pad
 
+from . import graphs
 from .kernels._build import require_full_fp32
-from .graphs import LAUNCHES as _LAUNCHES
 from .graphs import RUNNING, Programs, cached, state_key
-from .graphs import captured as _captured
-from .graphs import on_graphs as _on_graphs
 from .lanes import (device_resident, is_batched, is_device_resident, lanes_any, lockstep,
                     tree_map, tree_where, vmap_lanes)
 from .ops.block_tridiag import (block_tridiag_solve, cho_solve, cholesky_or_nan, pad_identity,
@@ -871,7 +869,7 @@ class IterationGraph(Programs):
         bodies = dict(zip(names, _programs(problem, settings, tridiag_backend, batched)))
         bufs = dict(state=tree_map(torch.clone, state0),
                     max_it=torch.full((), max_iterations, dtype=torch.int32, device=dev))
-        super().__init__(bodies, bufs, _on_graphs(dev), _captured, _LAUNCHES)
+        super().__init__(bodies, bufs, graphs.on_graphs(dev), graphs.captured, graphs.LAUNCHES)
         self.prepare(*names)
 
     def run(self, state0: Any, max_iterations: int) -> Any:

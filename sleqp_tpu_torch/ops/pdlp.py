@@ -139,28 +139,34 @@ def _kkt_residuals(op, c, lb, ub, x, y):
     return pres, torch.maximum(dres, gap)
 
 
-def solve(
-    A,
-    c: Tensor,
-    lb: Tensor,
-    ub: Tensor,
-    x0: Tensor | None = None,
-    y0: Tensor | None = None,
-    max_iterations: int = 20000,
-    tol: float = 1e-8,
-    check_every: int = 64,
-    adaptive_weight: bool = True,
-) -> PDLPResult:
-    """Restarted-average PDHG with Ruiz equilibration and adaptive primal
-    weight, to KKT tolerance ``tol`` (scaled, measured in the original
-    problem space).  ``A`` is a dense (m, N) tensor or an operator with the
-    ``DenseOp`` protocol.  Runs where ``A`` lives; the host reads one flag
-    every ``check_every`` iterations."""
-    op = _as_op(A)
+# the PDHG iterations between two restart checks (``solve``'s default)
+CHECK_EVERY = 64
+
+
+class Setup(NamedTuple):
+    """What a PDLP solve's blocks and finish take from its start: the LP
+    (bounds clamped to +-1e18), the Ruiz scaling vectors, the scaled
+    objective and bounds, the estimate of ||D_r A D_c||_2 and the tolerance
+    scaled by the objective."""
+
+    c: Tensor
+    lb: Tensor
+    ub: Tensor
+    d_r: Tensor
+    d_c: Tensor
+    cb: Tensor
+    lbb: Tensor
+    ubb: Tensor
+    Anorm: Tensor
+    rtol: Tensor
+
+
+def start(op, c: Tensor, lb: Tensor, ub: Tensor, x0: Tensor | None = None,
+          y0: Tensor | None = None, tol: float = 1e-8):
+    """The start of a solve on the operator ``op``: (``Setup``, the loop
+    state before the first block)."""
     m, N = op.shape
     dtype, dev = op.dtype, op.device
-    if dev.type == "cuda":
-        require_full_fp32()
     # clamp infinities so the projection arithmetic stays finite
     big = torch.full((), 1e18, dtype=dtype, device=dev)
     lb = torch.maximum(lb, -big)
@@ -177,77 +183,8 @@ def solve(
 
     Anorm = _norm_estimate(op, d_r, d_c)
     rtol = tol * (1.0 + c.abs().amax())
-
-    def orig_residuals(xb, yb):
-        """KKT residuals in the original space (simplex sign convention)."""
-        return _kkt_residuals(op, c, lb, ub, d_c * xb, -(d_r * yb))
-
-    def block(s, trip):
-        """One block of check_every PDHG iterations (fewer where
-        max_iterations cuts the last one) with no host read, then the
-        restart check.  Every active lane has run ``trip`` whole blocks, so
-        the block's length is the same on all of them."""
-        length = min(check_every, max_iterations - trip * check_every)
-        x, y, x_sum, y_sum = s["x"], s["y"], s["x_sum"], s["y_sum"]
-        omega = s["omega"]
-        # primal weight omega tracks ||dy||/||dx||: tau = eta/omega,
-        # sigma = eta*omega (tau*sigma*||A||^2 < 1 for any omega)
-        tau = 0.9 / (omega * Anorm)
-        sigma = 0.9 * omega / Anorm
-        for _ in range(length):
-            x_new = _proj(x - tau * (cb + d_c * op.rmv(d_r * y)), lbb, ubb)
-            y = y + sigma * (d_r * op.mv(d_c * (2.0 * x_new - x)))
-            x = x_new
-            x_sum = x_sum + x
-            y_sum = y_sum + y
-        out = dict(s, x=x, y=y, x_sum=x_sum, y_sum=y_sum, navg=s["navg"] + length,
-                   since=s["since"] + length, it=s["it"] + length)
-        if length < check_every:
-            return out  # max_iterations cut the block short: no check
-
-        # ---- candidate evaluation + adaptive restart ------------------
-        # restart to the better of {current, average} when the KKT error
-        # decayed enough since the last restart (beta = 0.2) or the
-        # period grew too long
-        navg, since = out["navg"], out["since"]
-        x_avg = _proj(x_sum / torch.clamp(navg, min=1.0), lbb, ubb)
-        y_avg = y_sum / torch.clamp(navg, min=1.0)
-        pc, dc_ = orig_residuals(x, y)
-        pa, da = orig_residuals(x_avg, y_avg)
-        e_cur = pc + dc_
-        e_avg = pa + da
-        take_avg = e_avg < e_cur
-        xr = torch.where(take_avg, x_avg, x)
-        yr = torch.where(take_avg, y_avg, y)
-        e_best = torch.minimum(e_avg, e_cur)
-        done = torch.where(take_avg, (pa <= rtol) & (da <= rtol), (pc <= rtol) & (dc_ <= rtol))
-        restart = done | (e_best <= 0.2 * s["e_last"]) | (since >= 4096)
-
-        if adaptive_weight:
-            dx = torch.linalg.vector_norm(xr - s["x_anchor"])
-            dy = torch.linalg.vector_norm(yr - s["y_anchor"])
-            valid = (dx > 1e-12) & (dy > 1e-12)
-            omega_r = torch.where(valid, torch.exp(0.5 * torch.log(dy / dx) + 0.5 * torch.log(omega)),
-                                  omega)
-            omega_r = torch.clamp(omega_r, 1e-4, 1e4)
-        else:
-            omega_r = omega
-
-        return dict(
-            out,
-            x=torch.where(restart, xr, x),
-            y=torch.where(restart, yr, y),
-            x_sum=torch.where(restart, 0.0, x_sum),
-            y_sum=torch.where(restart, 0.0, y_sum),
-            navg=torch.where(restart, 0.0 * navg, navg),
-            x_anchor=torch.where(restart, xr, s["x_anchor"]),
-            y_anchor=torch.where(restart, yr, s["y_anchor"]),
-            omega=torch.where(restart, omega_r, omega),
-            e_last=torch.where(restart, e_best, s["e_last"]),
-            since=torch.where(restart, 0, since).to(torch.int32),
-            done=done,
-        )
-
+    setup = Setup(c=c, lb=lb, ub=ub, d_r=d_r, d_c=d_c, cb=cb, lbb=lbb, ubb=ubb, Anorm=Anorm,
+                  rtol=rtol)
     loop = dict(
         x=x, y=y, x_sum=torch.zeros_like(x), y_sum=torch.zeros_like(y),
         navg=torch.zeros((), dtype=dtype, device=dev),
@@ -258,12 +195,97 @@ def solve(
         it=torch.zeros((), dtype=torch.int32, device=dev),
         done=torch.zeros((), dtype=torch.bool, device=dev),
     )
-    # the flag is read after each whole block (the cap is part of it), never
-    # after a block that max_iterations cut short: max_trips ends the loop
-    # there
-    loop = lockstep(lambda s: ~s["done"] & (s["it"] < max_iterations), block, loop,
-                    max_trips=max_iterations // check_every + 1, first=True)
-    x, y = d_c * loop["x"], d_r * loop["y"]
+    return setup, loop
+
+
+def block_length(trip: int, max_iterations: int, check_every: int = CHECK_EVERY) -> int:
+    """The PDHG iterations of block ``trip``: ``check_every``, fewer where
+    ``max_iterations`` cuts the last block short."""
+    return min(check_every, max_iterations - trip * check_every)
+
+
+def running(s: dict, max_iterations: int) -> Tensor:
+    """Whether the loop state ``s`` goes on: not done, below the cap."""
+    return ~s["done"] & (s["it"] < max_iterations)
+
+
+def block(op, setup: Setup, s: dict, length: int, check_every: int = CHECK_EVERY,
+          adaptive_weight: bool = True) -> dict:
+    """``length`` PDHG iterations from the loop state ``s`` with no host
+    read, then, for a whole block of ``check_every``, the restart check."""
+    cb, lbb, ubb = setup.cb, setup.lbb, setup.ubb
+    d_r, d_c, Anorm = setup.d_r, setup.d_c, setup.Anorm
+    x, y, x_sum, y_sum = s["x"], s["y"], s["x_sum"], s["y_sum"]
+    omega = s["omega"]
+    # primal weight omega tracks ||dy||/||dx||: tau = eta/omega,
+    # sigma = eta*omega (tau*sigma*||A||^2 < 1 for any omega)
+    tau = 0.9 / (omega * Anorm)
+    sigma = 0.9 * omega / Anorm
+    for _ in range(length):
+        x_new = _proj(x - tau * (cb + d_c * op.rmv(d_r * y)), lbb, ubb)
+        y = y + sigma * (d_r * op.mv(d_c * (2.0 * x_new - x)))
+        x = x_new
+        x_sum = x_sum + x
+        y_sum = y_sum + y
+    out = dict(s, x=x, y=y, x_sum=x_sum, y_sum=y_sum, navg=s["navg"] + length,
+               since=s["since"] + length, it=s["it"] + length)
+    if length < check_every:
+        return out  # max_iterations cut the block short: no check
+
+    def orig_residuals(xb, yb):
+        """KKT residuals in the original space (simplex sign convention)."""
+        return _kkt_residuals(op, setup.c, setup.lb, setup.ub, d_c * xb, -(d_r * yb))
+
+    # ---- candidate evaluation + adaptive restart ----------------------
+    # restart to the better of {current, average} when the KKT error
+    # decayed enough since the last restart (beta = 0.2) or the period
+    # grew too long
+    navg, since = out["navg"], out["since"]
+    x_avg = _proj(x_sum / torch.clamp(navg, min=1.0), lbb, ubb)
+    y_avg = y_sum / torch.clamp(navg, min=1.0)
+    pc, dc_ = orig_residuals(x, y)
+    pa, da = orig_residuals(x_avg, y_avg)
+    e_cur = pc + dc_
+    e_avg = pa + da
+    take_avg = e_avg < e_cur
+    xr = torch.where(take_avg, x_avg, x)
+    yr = torch.where(take_avg, y_avg, y)
+    e_best = torch.minimum(e_avg, e_cur)
+    rtol = setup.rtol
+    done = torch.where(take_avg, (pa <= rtol) & (da <= rtol), (pc <= rtol) & (dc_ <= rtol))
+    restart = done | (e_best <= 0.2 * s["e_last"]) | (since >= 4096)
+
+    if adaptive_weight:
+        dx = torch.linalg.vector_norm(xr - s["x_anchor"])
+        dy = torch.linalg.vector_norm(yr - s["y_anchor"])
+        valid = (dx > 1e-12) & (dy > 1e-12)
+        omega_r = torch.where(valid, torch.exp(0.5 * torch.log(dy / dx) + 0.5 * torch.log(omega)),
+                              omega)
+        omega_r = torch.clamp(omega_r, 1e-4, 1e4)
+    else:
+        omega_r = omega
+
+    return dict(
+        out,
+        x=torch.where(restart, xr, x),
+        y=torch.where(restart, yr, y),
+        x_sum=torch.where(restart, 0.0, x_sum),
+        y_sum=torch.where(restart, 0.0, y_sum),
+        navg=torch.where(restart, 0.0 * navg, navg),
+        x_anchor=torch.where(restart, xr, s["x_anchor"]),
+        y_anchor=torch.where(restart, yr, s["y_anchor"]),
+        omega=torch.where(restart, omega_r, omega),
+        e_last=torch.where(restart, e_best, s["e_last"]),
+        since=torch.where(restart, 0, since).to(torch.int32),
+        done=done,
+    )
+
+
+def finish(op, setup: Setup, loop: dict) -> PDLPResult:
+    """The result of a solve whose loop ended in the state ``loop``: the
+    unscaled primal and duals, the residuals and synthesized statuses."""
+    c, lb, ub = setup.c, setup.lb, setup.ub
+    x, y = setup.d_c * loop["x"], setup.d_r * loop["y"]
     # the simplex dual sign convention: reduced costs r = c - y A with y
     # such that r >= 0 at lower bounds at optimality
     y_out = -y
@@ -277,6 +299,7 @@ def solve(
     status = torch.where(at_lb & (r > 0.0), int(BaseStat.LOWER),
                          torch.where(at_ub & (r < 0.0), int(BaseStat.UPPER),
                                      int(BaseStat.BASIC))).to(torch.int8)
+    rtol = setup.rtol
     state = torch.where((pres <= rtol) & (dres <= rtol), OPTIMAL, ITERATION_LIMIT).to(torch.int32)
     return PDLPResult(
         x=x,
@@ -289,3 +312,40 @@ def solve(
         primal_res=pres,
         dual_res=dres,
     )
+
+
+def solve(
+    A,
+    c: Tensor,
+    lb: Tensor,
+    ub: Tensor,
+    x0: Tensor | None = None,
+    y0: Tensor | None = None,
+    max_iterations: int = 20000,
+    tol: float = 1e-8,
+    check_every: int = CHECK_EVERY,
+    adaptive_weight: bool = True,
+) -> PDLPResult:
+    """Restarted-average PDHG with Ruiz equilibration and adaptive primal
+    weight, to KKT tolerance ``tol`` (scaled, measured in the original
+    problem space).  ``A`` is a dense (m, N) tensor or an operator with the
+    ``DenseOp`` protocol.  Runs where ``A`` lives; the host reads one flag
+    every ``check_every`` iterations: ``start``, a ``lockstep`` loop of
+    ``block``s and ``finish``."""
+    op = _as_op(A)
+    if op.device.type == "cuda":
+        require_full_fp32()
+    setup, loop = start(op, c, lb, ub, x0=x0, y0=y0, tol=tol)
+
+    def trip_block(s, trip):
+        # every active lane has run ``trip`` whole blocks, so the block's
+        # length is the same on all of them
+        return block(op, setup, s, block_length(trip, max_iterations, check_every), check_every,
+                     adaptive_weight)
+
+    # the flag is read after each whole block (the cap is part of it), never
+    # after a block that max_iterations cut short: max_trips ends the loop
+    # there
+    loop = lockstep(lambda s: running(s, max_iterations), trip_block, loop,
+                    max_trips=max_iterations // check_every + 1, first=True)
+    return finish(op, setup, loop)

@@ -14,7 +14,6 @@ path (capture, replay, the phase switch, the lazy restoration capture, the
 cache) runs on emulated graphs.
 """
 
-import contextlib
 import dataclasses
 
 import pytest
@@ -27,7 +26,7 @@ from sleqp_tpu_torch import banded as tb
 from sleqp_tpu_torch.types import SolverPhase
 from test_torch_banded import CASES, _port_settings, case_run, chain_pair, close, port_state
 from test_torch_batch import HostReads
-from test_torch_ocp_jit import FakeStream, ReadsForbidden
+from torch_graphs import ReadsForbidden, emulated_graphs  # noqa: F401
 from torch_parity import no_jax_cache_writes, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -200,57 +199,6 @@ def test_exports_and_banded_solve_goes_through_jit(monkeypatch):
     out = tb.banded_solve(tp, ts, max_iterations=cap, state0=s0)
     assert calls == [cap]
     assert parts(out, tb.banded_solve_from(tp, ts, s0, cap)) == []
-
-
-def _refuse(*args, **kwargs):
-    raise RuntimeError("a host synchronization while capturing (emulated)")
-
-
-@pytest.fixture
-def emulated_graphs(monkeypatch):
-    """The card's path of banded_solve_jit's loop on the CPU.  A capture
-    records its program without running it (no buffer is written), and a
-    host read inside it raises, as under set_sync_debug_mode("error"); a
-    replay runs the program into the static buffers.  Returns the names of
-    the programs captured, in order."""
-    captured = []
-
-    class Graph:
-        def __init__(self, record):
-            self.record = record
-            saved = {n: getattr(torch.Tensor, n) for n in ("copy_", *HostReads.NAMES)}
-            try:
-                torch.Tensor.copy_ = lambda dst, src, non_blocking=False: dst
-                for n in HostReads.NAMES:
-                    setattr(torch.Tensor, n, _refuse)
-                record()
-            finally:
-                for n, fn in saved.items():
-                    setattr(torch.Tensor, n, fn)
-
-        def replay(self):
-            self.record()
-
-    real_capture = tb.Programs._capture
-
-    def capture(self, name):
-        graph = real_capture(self, name)
-        captured.append(name)
-        return graph
-
-    monkeypatch.setattr(tb, "_on_graphs", lambda device: True)
-    monkeypatch.setattr(tb, "_captured", Graph)
-    monkeypatch.setattr(tb.Programs, "_capture", capture)
-    for name, value in (("current_stream", lambda device=None: FakeStream()),
-                        ("Stream", lambda device=None: FakeStream()),
-                        ("stream", lambda s: contextlib.nullcontext()),
-                        ("synchronize", lambda device=None: None),
-                        ("memory_reserved", lambda device=None: 0),
-                        ("empty_cache", lambda: None),
-                        ("get_sync_debug_mode", lambda: 0),
-                        ("set_sync_debug_mode", lambda mode: None)):
-        monkeypatch.setattr(torch.cuda, name, value)
-    return captured
 
 
 PROGRAMS = {phase: [f"{phase}.{p}" for p in ("iterate", "search", "finish")]

@@ -9,7 +9,6 @@ Armijo loop's 30 trials masked.  Against the JAX package it is held at
 tests/test_torch_ocp.py's tolerances, the mixed route's named tie included.
 """
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -19,7 +18,8 @@ import torch
 from sleqp_tpu import Settings as JaxSettings
 from sleqp_tpu.ocp import ocp_initial_state as jax_initial_state
 from sleqp_tpu.ocp import ocp_solve_jit as jax_solve_jit
-from sleqp_tpu_torch import BlockStructuredProblem, Settings, Status, batched_ocp_solve, lanes
+from sleqp_tpu_torch import (BlockStructuredProblem, Settings, Status, batched_ocp_solve, graphs,
+                             lanes)
 from sleqp_tpu_torch import ocp as ocp_module
 from sleqp_tpu_torch.ocp import (
     MAX_LINESEARCH_STEPS,
@@ -31,6 +31,7 @@ from sleqp_tpu_torch.ocp import (
     ocp_solve_jit,
 )
 from test_torch_batch import HostReads
+from torch_graphs import ReadsForbidden, emulated_graphs  # noqa: F401
 from torch_parity import (  # noqa: F401
     NU,
     NX,
@@ -232,28 +233,6 @@ def test_batched_lanes(case, route, backend):
         np.testing.assert_allclose(out.U[b].numpy(), one.U.numpy(), rtol=0, atol=1e-10)
 
 
-class ReadsForbidden:
-    """Every host read of a tensor raises while active: truth values,
-    items, lists, Python numbers and the read of ``lanes.lanes_any``."""
-
-    NAMES = HostReads.NAMES
-
-    def __init__(self, monkeypatch):
-        self.monkeypatch = monkeypatch
-
-    def __enter__(self):
-        def refuse(*args, **kwargs):
-            raise AssertionError("a host read inside the read-free iteration")
-
-        for name in self.NAMES:
-            self.monkeypatch.setattr(torch.Tensor, name, refuse)
-        self.monkeypatch.setattr(lanes, "read_flag", refuse)
-        return self
-
-    def __exit__(self, *exc):
-        self.monkeypatch.undo()
-
-
 @pytest.mark.parametrize("route,backend", ROUTES)
 def test_read_free_iteration_reads_nothing(route, backend, monkeypatch):
     """Inside lanes.device_resident() one iteration, alone or under vmap,
@@ -334,45 +313,13 @@ def test_batched_reads(case):
         assert reads.count == max(n for _, n in singles)
 
 
-class FakeStream:
-    def wait_stream(self, other):
-        pass
-
-
 @pytest.fixture
-def emulated_graphs(monkeypatch):
-    """The card's path of ocp_solve_jit's loop on the CPU: a capture runs
-    its program once, as a capture records it, and a replay runs it again
-    into the static buffers (counting no launch, as a replay calls no
-    wrapper); the batched inverses count a launch a call, as their kernels'
-    wrappers do.  Returns the list of captured programs."""
+def counted_inverses(monkeypatch):
+    """On emulated graphs, the batched inverses' plain versions count a
+    launch a call, as their kernels' wrappers do, in fresh counts that
+    graphs.LAUNCHES holds alone."""
     from sleqp_tpu_torch.ops import cyclic_reduction as cr
 
-    captured = []
-
-    class Graph:
-        def __init__(self, record):
-            self.record = record
-            record()
-            captured.append(self)
-
-        def replay(self):
-            # a replay launches kernels, but calls no wrapper that counts
-            counts = dict(cr.LAUNCHES)
-            self.record()
-            cr.LAUNCHES.update(counts)
-
-    monkeypatch.setattr(ocp_module, "_on_graphs", lambda device: True)
-    monkeypatch.setattr(ocp_module, "_captured", Graph)
-    for name, value in (("current_stream", lambda device=None: FakeStream()),
-                        ("Stream", lambda device=None: FakeStream()),
-                        ("stream", lambda s: contextlib.nullcontext()),
-                        ("synchronize", lambda device=None: None),
-                        ("memory_reserved", lambda device=None: 0),
-                        ("empty_cache", lambda: None),
-                        ("get_sync_debug_mode", lambda: 0),
-                        ("set_sync_debug_mode", lambda mode: None)):
-        monkeypatch.setattr(torch.cuda, name, value)
     for name in ("bgj_flat", "bgj_blocked64"):
         plain = getattr(cr, f"{name}_plain")
 
@@ -382,12 +329,11 @@ def emulated_graphs(monkeypatch):
 
         monkeypatch.setattr(cr, f"{name}_plain", counted)
     monkeypatch.setattr(cr, "LAUNCHES", dict.fromkeys(cr.LAUNCHES, 0))
-    monkeypatch.setattr(ocp_module, "_LAUNCHES", (cr.LAUNCHES,))
-    return captured
+    monkeypatch.setattr(graphs, "LAUNCHES", (cr.LAUNCHES,))
 
 
 @pytest.mark.parametrize("batched", [False, True])
-def test_graph_bookkeeping_on_emulated_graphs(emulated_graphs, batched):
+def test_graph_bookkeeping_on_emulated_graphs(emulated_graphs, counted_inverses, batched):
     """Three programs captured once and cached on the problem; the launches
     made during a capture taken out of LAUNCHES and added back a replay
     (the warm-up's counted as run); one read after each program; the state
