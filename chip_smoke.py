@@ -40,24 +40,35 @@ run from a checkout of the repository, on a machine with a CUDA device and
 6. the float64 OCP solve with ``tridiag_backend="pallas"`` (float32 cyclic
    reduction with float64 refinement) on the problem of phase 3, the same
    way;
-7. the dense SLP-EQP solve (``solve``: the Cauchy LP by enumeration or the
-   simplex, the GLTR/CG Newton step, linesearches, penalty and trust-region
-   updates) on HS71 (``bench.py``), ``chainineq200`` and ``boxqp1000``
+7. the dense SLP-EQP solve (``solve``: ``solve_jit``, the iteration as
+   read-free programs captured as CUDA graphs, one host read a block of
+   pivots, Krylov steps or linesearch trials or a branch that guards an LP;
+   the Cauchy LP by enumeration or the simplex, the GLTR/CG Newton step,
+   linesearches, penalty and trust-region updates) on HS71 (``bench.py``),
+   ``chainineq200``, ``boxqp1000`` and ``projqp500``
    (``sleqp_tpu/harness/medium.py``, same seeds), each on the float64 and
-   the mixed route, on the card and through the port on the CPU: status,
-   objective against ``artifacts/suite_all_f64_r5.csv``, residuals, x
-   against the CPU run, the state on the card; iterations, simplex pivots,
-   ms per iteration and host reads (synchronizations) per iteration.  It
-   launches none of the six kernels;
-8. the entry point ``Solver(problem, x0, settings).solve()`` on the card and
-   on the CPU: default settings on both routes on HS71, chainineq200,
-   boxqp1000, projqp500 and broydn100 (an ``LSQFunc``: Gauss-Newton +
-   LSQR), hs62 with ``scaling="auto"``, the Waechter-Biegler problem
-   (restoration), DAMPED_BFGS and SR1 on extrosnb100 and DAMPED_BFGS on
-   HS71, the parametric Cauchy step (COARSE, FINE) on chainineq200, and the
-   preprocessor on hs42 with its linear constraint as a linear row; each
-   against the r5 CSV or a constant measured with the JAX package, with
-   seconds per solve, ms per iteration and host reads per iteration.  It
+   the mixed route, on the card, held to the eager loop ``solve_from`` on
+   the card on every field (bit for bit, or within two eager runs' spread),
+   and through the port on the CPU: status, objective against
+   ``artifacts/suite_all_f64_r5.csv``, residuals, x against the CPU run,
+   the state on the card; iterations, simplex pivots, ms per iteration by
+   graph and eager, host reads per iteration both ways (fewer on the graphs
+   for HS71 and chainineq200), pivot blocks an LP, Krylov blocks an EQP,
+   warm-up and capture seconds and memory, ms, kernels and (float64) the
+   idle share of a traced replay of each program.  It launches none of the
+   six kernels;
+8. the entry point ``Solver(problem, x0, settings).solve()`` on the card
+   (through ``solve_jit``, its restoration solves too) and on the CPU, each
+   card solve held on every field to the same Solver stepping its eager
+   loop on the card (``eager_loops``): default settings on both routes on
+   HS71, chainineq200, boxqp1000, projqp500 and broydn100 (an ``LSQFunc``:
+   Gauss-Newton + LSQR), hs62 with ``scaling="auto"``, the Waechter-Biegler
+   problem (restoration), DAMPED_BFGS and SR1 on extrosnb100 and
+   DAMPED_BFGS on HS71, the parametric Cauchy step (COARSE, FINE) on
+   chainineq200, and the preprocessor on hs42 with its linear constraint as
+   a linear row; each against the r5 CSV or a constant measured with the
+   JAX package, with seconds per solve and ms per iteration by graph and
+   eager, the captures' cost and host reads per iteration both ways.  It
    launches none of the six kernels;
 9. the PDLP Cauchy LP: ``solve_cauchy_lp`` on the LP of chainineq
    (``harness/medium.py``'s formula and seed) at n = 2100 (N = n + 3m =
@@ -69,11 +80,13 @@ run from a checkout of the repository, on a machine with a CUDA device and
 10. dynamic functions: ``tests/test_dyn.py``'s Rosenbrock and constrained
     problems through ``Solver`` on the card and the CPU (OPTIMAL, x, the
     error bound tightened);
-11. the suite sweep (``tools/torch_suite.py``) on the card: 87 of the 101
-    rows of the r5 sweep on the float64 route (``FLOAT64_LEFT_OUT`` names
-    the other 14) and 87 of its 97 optimal rows on the mixed route
-    (``MIXED_LEFT_OUT`` names the other ten), each through the end gate
-    against ``artifacts/suite_all_{f64,mixed}_r5.csv``;
+11. the suite sweep (``tools/torch_suite.py``) on the card, each row
+    through ``Solver`` and so ``solve_jit`` (a row's problem captures its
+    programs on its first solve): 87 of the 101 rows of the r5 sweep on the
+    float64 route (``FLOAT64_LEFT_OUT`` names the other 14) and 87 of its
+    97 optimal rows on the mixed route (``MIXED_LEFT_OUT`` names the other
+    ten), each through the end gate against
+    ``artifacts/suite_all_{f64,mixed}_r5.csv``;
 12. the banded structured path (``banded.py``): ``bench.py``'s banded
     problem (n = 10 240) on both routes through ``banded_solve_jit`` (CUDA
     graphs) on the card, every field bit for bit the eager loop
@@ -213,6 +226,7 @@ from sleqp_tpu_torch import (  # noqa: E402
 )
 from sleqp_tpu_torch.sparse import sparse_initial_state, sparse_perform_iteration  # noqa: E402
 from sleqp_tpu_torch import banded, cauchy, gauss_newton, problem_solver, sparse  # noqa: E402
+from sleqp_tpu_torch import solver as solver_module  # noqa: E402
 from sleqp_tpu_torch import lanes as lanes_module  # noqa: E402
 from sleqp_tpu_torch import ocp as ocp_module  # noqa: E402
 from sleqp_tpu_torch.lanes import tree_leaves, vmap_lanes  # noqa: E402
@@ -704,6 +718,7 @@ DENSE_REF = {
     "hs71": (17.014017157, 6, 6),
     "chainineq200": (8.0110686546, 24, 24),
     "boxqp1000": (41.215701999, 4, 11),
+    "projqp500": (8.5076360667, 3, 4),
 }
 
 
@@ -766,14 +781,132 @@ def count_host_reads(fn):
     return sum(sites.values()), out
 
 
-def host_reads(problem, settings, x0):
-    """Host reads over one dense solve."""
-    return count_host_reads(
-        lambda: solve(problem, settings, x0, max_iterations=200, device="cuda"))
+def dense_parts(a, b):
+    """{field: largest |difference|} of the fields of two dense solver
+    states whose bits part."""
+    fa, fb = flat_fields(a), flat_fields(b)
+    out = {}
+    for k, x in fa.items():
+        y = fb[k]
+        if not (x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()):
+            d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            out[k] = float(np.nanmax(d)) if d.size and not np.isnan(d).all() else float("nan")
+    return out
+
+
+def dense_gate(tag, out, eager):
+    """Hold the graph's dense state ``out`` to the eager loop's states
+    ``eager`` (one run, or more from the same start on the same card): bit
+    for bit where the eager runs agree bit for bit; where they part (a sum
+    whose order the card does not fix), the same status and iterations and
+    every field within the eager runs' spread of an eager run.  Returns
+    (the eager runs' spread, the graph's gaps to the first run), by field."""
+    spread = {}
+    for i, a in enumerate(eager):
+        for b in eager[i + 1:]:
+            for k, v in dense_parts(a, b).items():
+                spread[k] = max(spread.get(k, 0.0), v)
+    gaps = dense_parts(out, eager[0])
+    if not spread:
+        check(not gaps, f"{tag}: the graph parts from solve_from in {gaps}")
+        return spread, gaps
+    for f in ("status", "iteration"):
+        check(all(torch.equal(getattr(out, f), getattr(e, f)) for e in eager),
+              f"{tag}: {f} parts from the eager runs")
+    far = {k: min(dense_parts(out, e).get(k, 0.0) for e in eager) for k in gaps}
+    check(all(far[k] <= spread.get(k, 0.0) for k in far),
+          f"{tag}: the graph parts from every eager run by more than their spread {spread}: "
+          f"{far}")
+    return spread, gaps
+
+
+PIVOT_BLOCKS = ("lp.primal", "lp.dual", "lp.primal64", "lp.dual64", "red.primal",
+                "red.primal64", "red.dual64")
+
+
+def loop_counts(replays):
+    """(LP solves with a loop, pivot blocks, EQP solves, Krylov blocks) of
+    the replays of a dense solve's programs."""
+    lps = sum(v for k, v in replays.items() if k.startswith(("lp.extract", "lp.pdlp.end")))
+    pivots = sum(v for k, v in replays.items() if k.replace(".refactor", "") in PIVOT_BLOCKS)
+    eqps = replays.get("it.newton", 0)
+    krylov = eqps + sum(v for k, v in replays.items() if k.startswith("kr."))
+    return lps, pivots, eqps, krylov
+
+
+def dense_graph_run(log, phase, tag, problem, settings, x0, card="cuda", max_iterations=200,
+                    trace=True):
+    """A dense solve through ``solve_jit`` (CUDA graphs) on the card, held
+    to ``solve_from`` (the eager loop) on the same card by ``dense_gate`` (a
+    second eager run only where the first parts from the graph); the graph
+    solved twice (the first call warms up and captures) with its host reads
+    counted, the eager loop once with its reads.  Logs ms an iteration both
+    ways, host reads an iteration, pivot blocks an LP and Krylov blocks an
+    EQP, the captures' cost, and ms (CUDA events, median of 5), kernels and
+    (``trace``) the idle share of a traced replay of each program the solve
+    ran.  Returns (graph state, seconds, eager seconds, graph reads, eager
+    reads, programs)."""
+    state0 = initial_state(problem, settings, x0, device=card)
+    jit = functools.partial(problem_solver.solve_jit, problem, settings, state0, max_iterations)
+    out, first_s = timed(jit, card)
+    loop = problem_solver.solve_graphs(problem, settings, state0, max_iterations)
+    first = (loop.warmup_s, loop.capture_s, loop.reserved_bytes / 2**20, len(loop.programs))
+    replays, loop_reads = dict(loop.replays), loop.reads
+    reads, (again, solve_s) = count_host_reads(lambda: timed(jit, card))
+    runs = {name: loop.replays[name] - replays[name] for name in loop.replays}
+    loop_reads = loop.reads - loop_reads
+    eager = functools.partial(problem_solver.solve_from, problem, settings, state0,
+                              max_iterations)
+    eager_reads, (ref, eager_s) = count_host_reads(lambda: timed(eager, card))
+    refs = [ref]
+    if dense_parts(out, ref):
+        refs.append(eager())
+    spread, gaps = dense_gate(tag, out, refs)
+    graph_again = dense_parts(again, out)
+    iterations = int(out.iteration)
+    lps, pivots, eqps, krylov = loop_counts(runs)
+    programs = {}
+    for name in (n for n in loop.programs if runs.get(n)):
+        loop.load(state0, max_iterations)
+        ms = event_ms(lambda: loop.replay(name))
+        kernels, wall, busy = traced(lambda: loop.replay(name)) if trace else (0, 0.0, 0.0)
+        programs[name] = (ms, kernels, busy)
+    per_it = max(iterations, 1)
+    log(phase, f"{tag} through solve_jit (CUDA graphs) against solve_from on the card: "
+               f"status={Status(int(out.status)).name} iterations={iterations} "
+               f"obj={float(out.it.obj_val):.11g}; ms an iteration: graph "
+               f"{1e3 * solve_s / per_it:.3f}, eager {1e3 * eager_s / per_it:.3f} "
+               f"({eager_s / solve_s:.2f}x); solve s: graph {solve_s:.3f} (first call "
+               f"{first_s:.3f}: warm-up {first[0]:.3f}, capture and instantiation {first[1]:.3f} "
+               f"of {first[3]} programs, memory reserved by the captures {first[2]:.1f} MiB), "
+               f"eager {eager_s:.3f}; host reads: graph {reads} ({reads / per_it:.2f} an "
+               f"iteration, one before the first), eager {eager_reads} "
+               f"({eager_reads / per_it:.2f}); LPs with a loop {lps}, pivot blocks "
+               f"{pivots} ({pivots / max(lps, 1):.2f} an LP), EQP solves {eqps}, Krylov blocks "
+               f"{krylov} ({krylov / max(eqps, 1):.2f} an EQP), simplex pivots "
+               f"{int(out.lp_iterations)}; replays {dict((k, v) for k, v in runs.items() if v)}; "
+               f"one replay of each program, ms (CUDA events, median of 5), kernels"
+               + (" and idle share of a traced replay" if trace else "") + ": "
+               + ", ".join(f"{n} {ms:.3f} ms {k}" + (f" {1 - busy / ms:.3f}" if trace else "")
+                           for n, (ms, k, busy) in programs.items())
+               + "; eager against eager: "
+               + ("one run" if len(refs) == 1 else
+                  "bit for bit" if not spread else f"fields part, largest |difference| {spread}")
+               + "; graph against the first eager run: "
+               + ("bit for bit" if not gaps else f"{gaps}")
+               + "; second graph solve against the first: "
+               + ("bit for bit" if not graph_again else f"{graph_again}")
+               + f"; card '{card_line()}'")
+    check(reads == loop_reads, f"{tag}: {reads} host synchronizations, the loop's own reads "
+                               f"{loop_reads}")
+    check(reads <= eager_reads, f"{tag}: {reads} host reads on the graphs, {eager_reads} eager")
+    check(not graph_again, f"{tag}: the second graph solve parts from the first: {graph_again}")
+    return out, solve_s, eager_s, reads, eager_reads, programs
 
 
 def dense_phase(log):
-    """Phase 7: the dense SLP-EQP solve on the card and on the CPU."""
+    """Phase 7: the dense SLP-EQP solve through solve_jit on the card, held
+    to the eager loop on the card and to the CPU."""
     # the rule the pivoting rests on, on the card: argmax/argmin pick the
     # first index of a tie and take NaN as the extreme value, as on the CPU
     for values in ([1.0, 3.0, 3.0, 2.0], [float("nan"), 1.0, float("nan")],
@@ -787,26 +920,23 @@ def dense_phase(log):
     for name, (f_ref, it64, itmix) in DENSE_REF.items():
         gpu_problem, x0 = dense_problem(name, "cuda")
         cpu_problem, _ = dense_problem(name, "cpu")
-        reads, _ = host_reads(gpu_problem, Settings(), x0)
         for route, it_ref in (("same", it64), ("float32", itmix)):
             settings = Settings(compute_dtype=route)
-            out, gpu_s = timed_solve(gpu_problem, settings, x0, "cuda")
+            label = f"{name} ({'float64' if route == 'same' else 'mixed'})"
+            out, gpu_s, _, reads, eager_reads, _ = dense_graph_run(
+                log, 7, f"dense {label}", gpu_problem, settings, x0, trace=route == "same")
             ref, cpu_s = timed_solve(cpu_problem, settings, x0, "cpu")
             iters, cpu_iters = int(out.iteration), int(ref.iteration)
             obj = float(out.it.obj_val)
             dx = float((out.it.x.cpu() - ref.it.x).abs().max())
-            line = (f"dense {name} ({'float64' if route == 'same' else 'mixed'}): "
-                    f"status={Status(int(out.status)).name} obj={obj:.11g} "
-                    f"(r5 CSV {f_ref}); feas={float(out.feas_res):.3e} "
-                    f"slack={float(out.slack_res):.3e} stat={float(out.stat_res):.3e}; "
-                    f"iterations card {iters}, CPU {cpu_iters}, CSV {it_ref}; "
-                    f"simplex pivots {int(out.lp_iterations)}; card {gpu_s:.3f} s per solve, "
-                    f"{1e3 * gpu_s / max(iters, 1):.2f} ms per iteration; CPU {cpu_s:.3f} s, "
-                    f"{1e3 * cpu_s / max(cpu_iters, 1):.2f} ms per iteration; "
-                    f"max |x_card - x_cpu| {dx:.3e}")
-            if route == "same":
-                line += f"; host reads {reads} ({reads / max(iters, 1):.1f} per iteration)"
-            log(7, line)
+            log(7, f"dense {label}: status={Status(int(out.status)).name} obj={obj:.11g} "
+                   f"(r5 CSV {f_ref}); feas={float(out.feas_res):.3e} "
+                   f"slack={float(out.slack_res):.3e} stat={float(out.stat_res):.3e}; "
+                   f"iterations card {iters}, CPU {cpu_iters}, CSV {it_ref}; "
+                   f"simplex pivots {int(out.lp_iterations)}; card (graph) {gpu_s:.3f} s per "
+                   f"solve, {1e3 * gpu_s / max(iters, 1):.2f} ms per iteration; CPU (solve_jit) "
+                   f"{cpu_s:.3f} s, {1e3 * cpu_s / max(cpu_iters, 1):.2f} ms per iteration; "
+                   f"max |x_card - x_cpu| {dx:.3e}")
             check(int(out.status) == Status.OPTIMAL, f"dense {name} {route}: not OPTIMAL")
             check(abs(obj - f_ref) <= 1e-6 * abs(f_ref),
                   f"dense {name} {route}: objective {obj} against {f_ref}")
@@ -816,6 +946,9 @@ def dense_phase(log):
             check(int(ref.status) == int(out.status), f"dense {name} {route}: CPU status differs")
             if route == "same":
                 check(dx <= 1e-6, f"dense {name}: x differs from the CPU run by {dx:.3e}")
+            if name in ("hs71", "chainineq200"):
+                check(reads < eager_reads, f"dense {label}: {reads} host reads on the graphs, "
+                                           f"not fewer than the eager loop's {eager_reads}")
             check(all(t.device.type == "cuda" for t in tensors_of(out)),
                   f"dense {name} {route}: a tensor of the final state is not on the card")
 
@@ -909,43 +1042,89 @@ class LsqrSteps:
 def timed_solver(name, settings, scaling, device):
     problem, x0 = solver_problem(name, device)
     solver = Solver(problem, x0, settings, scaling=scaling, device=device)
+    return (solver, *timed_solve_call(solver, device))
+
+
+def timed_solve_call(solver, device):
+    """(status, seconds) of ``solver.solve(max_iterations=1000)``."""
     if device == "cuda":
         torch.cuda.synchronize()
     t = time.perf_counter()
     status = solver.solve(max_iterations=1000)
     if device == "cuda":
         torch.cuda.synchronize()
-    return solver, status, time.perf_counter() - t
+    return status, time.perf_counter() - t
+
+
+class eager_loops:
+    """Within the block, ``Solver`` steps in its Python loop and runs its
+    restoration solves by ``solve_from``: the eager oracle of the fused
+    loop (``solve_jit``)."""
+
+    def __enter__(self):
+        self.needs, self.jit = Solver._needs_python_loop, solver_module.solve_jit
+        Solver._needs_python_loop = lambda solver, time_limit: True
+        solver_module.solve_jit = problem_solver.solve_from
+        return self
+
+    def __exit__(self, *exc):
+        Solver._needs_python_loop, solver_module.solve_jit = self.needs, self.jit
+
+
+def solver_graphs(solver):
+    """The programs (``graphs.Programs``) of a Solver's problems."""
+    problems = [solver.problem] + ([solver._restoration[0]] if solver._restoration else [])
+    return [p for q in problems for p in q.__dict__.get("_solve_graphs", {}).values()]
 
 
 def solver_phase(log):
-    """Phase 8: Solver(problem, x0, settings).solve() on the card and on the
+    """Phase 8: Solver(problem, x0, settings).solve() on the card through
+    solve_jit (CUDA graphs), held to its eager loop on the card, and on the
     CPU."""
     base = Settings()
     for label, name, kw, scaling, f_ref, it_refs, tie, source in SOLVER_RUNS:
         for route, it_ref in it_refs.items():
             settings = Settings(compute_dtype=route, **kw)
-            with LsqrSteps() as lsqr:
-                solver, status, gpu_s = timed_solver(name, settings, scaling, "cuda")
+            solver, status, first_s = timed_solver(name, settings, scaling, "cuda")
+            reads, (status, gpu_s) = count_host_reads(lambda: timed_solve_call(solver, "cuda"))
+            loops = solver_graphs(solver)
+            graph_state = solver.state
+            newton_runs = sum(loop.replays.get("it.newton", 0) for loop in loops)
+            with eager_loops(), LsqrSteps() as lsqr:
+                eager_reads, (_, eager_s) = count_host_reads(
+                    lambda: timed_solve_call(solver, "cuda"))
+                oracle = [solver.state]
+                if dense_parts(graph_state, oracle[0]):
+                    timed_solve_call(solver, "cuda")
+                    oracle.append(solver.state)
+            spread, gaps = dense_gate(f"{label} ({route})", graph_state, oracle)
+            # the graph's result is the Solver's
+            status, _ = timed_solve_call(solver, "cuda")
             ref, ref_status, cpu_s = timed_solver(name, settings, scaling, "cpu")
             iters, cpu_iters = solver.iterations, ref.iterations
             obj = solver.obj_val
             feas, slack, stat = solver.residuals()
             dx = float(np.abs(solver.solution - ref.solution).max())
+            per_it = max(iters, 1)
             line = (f"{label} ({'float64' if route == 'same' else 'mixed'}): {status.name} "
                     f"obj={obj:.11g} (reference {f_ref}, {source}); feas={feas:.3e} "
                     f"slack={slack:.3e} stat={stat:.3e}; iterations card {iters}, CPU "
                     f"{cpu_iters}, reference {it_ref}; restoration phases "
-                    f"{solver.num_phase_toggles}; card {gpu_s:.3f} s per solve, "
-                    f"{1e3 * gpu_s / max(iters, 1):.2f} ms per iteration; CPU {cpu_s:.3f} s, "
-                    f"{1e3 * cpu_s / max(cpu_iters, 1):.2f} ms per iteration; "
-                    f"max |x_card - x_cpu| {dx:.3e}")
+                    f"{solver.num_phase_toggles}; card through solve_jit {gpu_s:.3f} s per "
+                    f"solve (first {first_s:.3f}: warm-up "
+                    f"{sum(lp.warmup_s for lp in loops):.3f}, capture "
+                    f"{sum(lp.capture_s for lp in loops):.3f}, "
+                    f"{sum(lp.reserved_bytes for lp in loops) / 2**20:.1f} MiB), "
+                    f"{1e3 * gpu_s / per_it:.2f} ms per iteration; eager loop {eager_s:.3f} s, "
+                    f"{1e3 * eager_s / per_it:.2f} ms per iteration; CPU (solve_jit) "
+                    f"{cpu_s:.3f} s, {1e3 * cpu_s / max(cpu_iters, 1):.2f} ms per iteration; "
+                    f"host reads graph {reads} ({reads / per_it:.2f} per iteration), eager "
+                    f"{eager_reads} ({eager_reads / per_it:.2f}); graph against the eager loop: "
+                    + ("bit for bit" if not gaps else f"{gaps} (eager spread {spread})")
+                    + f"; max |x_card - x_cpu| {dx:.3e}")
             if lsqr.calls:
-                line += f"; Gauss-Newton steps {lsqr.calls}, LSQR steps {lsqr.total()}"
-            if route == "same":
-                reads, _ = count_host_reads(
-                    lambda: timed_solver(name, settings, scaling, "cuda"))
-                line += f"; host reads {reads} ({reads / max(iters, 1):.1f} per iteration)"
+                line += (f"; Gauss-Newton steps {lsqr.calls} (graph: {newton_runs} over two "
+                         f"solves), LSQR steps {lsqr.total()}")
             pre = solver._preprocessed
             if pre is not None:
                 line += (f"; presolve fixed variables {pre.fixed_vars.tolist()} at "
@@ -962,6 +1141,8 @@ def solver_phase(log):
             slack = tie if route == "same" else max(tie, 3)
             check(abs(iters - it_ref) <= slack,
                   f"{label} {route}: {iters} iterations against {it_ref}")
+            check(reads <= eager_reads,
+                  f"{label} {route}: {reads} host reads on the graphs, {eager_reads} eager")
             if route == "same":
                 check(dx <= 1e-6, f"{label}: x differs from the CPU run by {dx:.3e}")
             state_tensors = tensors_of(solver.state) + tensors_of(solver.iterate)
@@ -970,7 +1151,8 @@ def solver_phase(log):
             if name == "wachbieg":
                 check(solver.num_phase_toggles >= 1, "wachbieg: restoration was not entered")
             if name == "broydn100":
-                check(lsqr.calls >= iters, "broydn100: the Gauss-Newton step was not taken")
+                check(lsqr.calls >= iters and newton_runs >= 2 * iters,
+                      "broydn100: the Gauss-Newton step was not taken")
             if pre is not None:
                 check(len(pre.fixed_vars) > 0 and len(pre.removed_linear) > 0,
                       f"{label}: the preprocessor removed nothing")

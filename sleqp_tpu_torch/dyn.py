@@ -76,8 +76,11 @@ class DynFunc(Func):
         """(obj, cons, error estimate) at the accuracy ``error_bound``, with
         objective weight 1 and constraint weights ``penalty``."""
         obj_weight = torch.ones((), dtype=x.dtype, device=x.device)
-        cons_weights = torch.as_tensor(penalty, dtype=x.dtype, device=x.device).expand(
-            self.num_cons)
+        # a number is filled on the device (a copy from the host would
+        # synchronize, which a CUDA graph cannot capture)
+        weight = (penalty.to(dtype=x.dtype, device=x.device) if isinstance(penalty, Tensor)
+                  else torch.full((), float(penalty), dtype=x.dtype, device=x.device))
+        cons_weights = weight.expand(self.num_cons)
         obj, cons, err = self.eval_fn(x, error_bound, obj_weight, cons_weights)
         return (
             torch.as_tensor(obj, dtype=x.dtype, device=x.device).reshape(()),

@@ -30,18 +30,13 @@ from .problem import LSQFunc, Problem, ProblemData, linearize
 Tensor = torch.Tensor
 
 
-def compute_gauss_newton_step(
-    problem: Problem,
-    data: ProblemData,
-    it: Iterate,
-    aug_jac: AugJac,
-    ws: WorkingStep,
-    penalty: Tensor,
-    max_iterations: int,
-) -> NewtonResult:
+def gauss_newton_start(problem: Problem, data: ProblemData, it: Iterate, aug_jac: AugJac,
+                       ws: WorkingStep, penalty: Tensor):
+    """(forward, adjoint, b): the LSQR operator ``A = [J_r; sqrt(penalty)
+    D_viol J] P`` and the right-hand side, the negative residuals at the
+    initial step d0."""
     func = problem.func
     assert isinstance(func, LSQFunc)
-    n = problem.num_variables
     k = func.num_residuals
 
     r0, jvp_fn, vjp_fn = linearize(func.residuals, it.x)
@@ -56,15 +51,17 @@ def compute_gauss_newton_step(
         g = vjp_fn(u[:k]) + sqrt_pen * (it.cons_jac.T @ (viol * u[k:]))
         return project_nullspace(aug_jac, g)
 
-    # right-hand side: the negative residuals at the initial step d0
     bound = torch.where(viol > 0.0, data.cons_ub, data.cons_lb)
     bound = torch.where(viol == 0.0, 0.0, bound)
     cons_resid = torch.where(viol != 0.0, ws.initial_cons_val - bound, 0.0)
     b = -torch.cat([r0 + jvp_fn(ws.step), sqrt_pen * (viol * cons_resid)])
+    return forward, adjoint, b
 
-    t, iters = lsqr_tr(forward, adjoint, b, ws.reduced_trust_radius, n, max_iterations)
+
+def gauss_newton_result(problem: Problem, it: Iterate, aug_jac: AugJac, ws: WorkingStep,
+                        t: Tensor, iters: Tensor) -> NewtonResult:
+    """The Gauss-Newton direction d0 + P t from LSQR's iterate t."""
     t = project_nullspace(aug_jac, t)
-
     zero_radius = ws.reduced_trust_radius <= 1e-20
     step = torch.where(zero_radius, ws.step, ws.step + t)
     direction = make_direction(it, step, problem.hess_prod(it.x, step, it.cons_dual))
@@ -77,3 +74,18 @@ def compute_gauss_newton_step(
         max_rayleigh=zero,
     )
     return NewtonResult(direction=direction, tr=tr)
+
+
+def compute_gauss_newton_step(
+    problem: Problem,
+    data: ProblemData,
+    it: Iterate,
+    aug_jac: AugJac,
+    ws: WorkingStep,
+    penalty: Tensor,
+    max_iterations: int,
+) -> NewtonResult:
+    forward, adjoint, b = gauss_newton_start(problem, data, it, aug_jac, ws, penalty)
+    t, iters = lsqr_tr(forward, adjoint, b, ws.reduced_trust_radius, problem.num_variables,
+                       max_iterations)
+    return gauss_newton_result(problem, it, aug_jac, ws, t, iters)

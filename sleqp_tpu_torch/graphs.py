@@ -15,13 +15,17 @@ An iteration whose Armijo linesearch outlasts the trials inside the
 iteration's own program is finished by two more: one that runs a block of
 trials while a lane still searches (bit ``SEARCHING`` of the flag) and one
 that takes the step (``Programs.step``).  A loop inside an iteration that is
-too long to run masked in one graph (the sparse solve's CG and PDHG) is a
+too long to run masked in one graph (the sparse solve's CG and PDHG, the
+dense solve's simplex pivots, Krylov steps and linesearch trials) is a
 program of one block, run again while its bit of the flag is set
-(``Programs.repeat``).
+(``Programs.repeat``); a branch that guards such a loop (the dense solve's
+LP re-solves) is a read of its bit.  A program is captured when a solve
+first runs it (``Programs.call``).
 """
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Optional
 
@@ -32,12 +36,24 @@ from .ops import cyclic_reduction, pallas_chol_tridiag, pallas_tridiag
 from .types import SolverPhase, Status
 
 # flag bits: a lane still runs; a lane's linesearch goes on; the next
-# iteration restores; a CG solve goes on; a PDHG solve goes on
+# iteration restores; a Krylov solve (CG, GLTR's Lanczos, LSQR) goes on; a
+# PDHG solve goes on; and the dense solve's (problem_solver.solve_jit): the
+# Cauchy LP's saved basis takes the dual stage; a simplex pivoting loop
+# goes on; the float64 polish's primal pass runs; the reduced LP
+# re-solves; the penalty update goes on (its feasibility LP, another
+# increase); the parametric Cauchy sweep goes on; the sweep goes forward
 RUNNING = 1
 SEARCHING = 2
 RESTORING = 4
 CG = 8
 LP = 16
+WARM_DUAL = 32
+PIVOT = 64
+POLISH = 128
+RESOLVE = 256
+PENALTY = 512
+SWEEP = 1024
+FORWARD = 2048
 
 # the kernels' launch counts (by kernel name), which a capture corrects
 LAUNCHES = (cyclic_reduction.LAUNCHES, pallas_tridiag.LAUNCHES, pallas_chol_tridiag.LAUNCHES)
@@ -49,10 +65,19 @@ def on_graphs(device: torch.device) -> bool:
 
 
 def captured(record: Callable[[], None]) -> "torch.cuda.CUDAGraph":
-    """``record()`` captured as a CUDA graph."""
+    """``record()`` captured as a CUDA graph.  Python's cyclic garbage
+    collector waits until the capture ends: a collection during it could
+    destroy an unreachable graph of an earlier solve, which a capture does
+    not permit."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        record()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            record()
+    finally:
+        if collecting:
+            gc.enable()
     return graph
 
 
@@ -162,6 +187,12 @@ class Programs:
             self.bufs["max_it"] = torch.full((), max_iterations, dtype=torch.int32,
                                              device=self.device)
 
+    def call(self, name: str) -> None:
+        """``name`` made runnable where it is not yet, then replayed."""
+        if name not in self.programs:
+            self.prepare(name)
+        self.replay(name)
+
     def replay(self, name: str) -> None:
         """One run of a program on the buffers, its launches counted."""
         self.replays[name] += 1
@@ -183,11 +214,12 @@ class Programs:
         return self.read(self.bufs["flag"])
 
     def repeat(self, name: str, bit: int, runs: int) -> int:
-        """At most ``runs`` runs of ``name``, a read after each, while the
-        flag has ``bit``.  Returns the last flag."""
+        """At most ``runs`` runs of ``name`` (made runnable first where it
+        is not yet), a read after each, while the flag has ``bit``.
+        Returns the last flag."""
         flag = bit
         for _ in range(runs):
-            self.replay(name)
+            self.call(name)
             flag = self.flag()
             if not flag & bit:
                 break

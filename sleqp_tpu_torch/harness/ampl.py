@@ -91,7 +91,9 @@ class _Expr:
 
     def evaluate(self, x):
         if self.kind == "num":
-            return torch.as_tensor(self.value, dtype=x.dtype, device=x.device)
+            # filled on x's device: a copy from the host would synchronize,
+            # which a CUDA graph of the iteration cannot capture
+            return torch.full((), self.value, dtype=x.dtype, device=x.device)
         if self.kind == "var":
             return x[self.var]
         if self.op in _UNARY:

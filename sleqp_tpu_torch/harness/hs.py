@@ -49,10 +49,12 @@ def get_problem(name: str, device: Any = None):
 
 def _vec(items) -> Tensor:
     """A vector of scalar expressions; constants among them follow the
-    dtype and device of the tensors."""
+    dtype and device of the tensors (filled there: a copy from the host
+    would synchronize, which a CUDA graph of the iteration cannot
+    capture)."""
     like = next(v for v in items if isinstance(v, Tensor))
     return torch.stack([v if isinstance(v, Tensor)
-                        else torch.as_tensor(v, dtype=like.dtype, device=like.device)
+                        else torch.full((), float(v), dtype=like.dtype, device=like.device)
                         for v in items])
 
 
@@ -1233,7 +1235,13 @@ def hs80(device):
 def hs110(device):
     def obj(x):
         terms = torch.log(x - 2.0) ** 2 + torch.log(10.0 - x) ** 2
-        return torch.sum(terms) - torch.prod(x) ** 0.2
+        # the product of the entries as a chain of products: torch.prod's
+        # derivative tests its input for zeros on the card, a host read
+        # that a CUDA graph of the iteration cannot capture
+        prod = x[0]
+        for v in x[1:]:
+            prod = prod * v
+        return torch.sum(terms) - prod ** 0.2
 
     p, x0 = _make(device, obj, 10, [9.0] * 10, var_lb=2.001, var_ub=9.999)
     return p, x0, -45.77846971

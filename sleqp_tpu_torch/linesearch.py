@@ -17,6 +17,8 @@ reads one flag per step for all lanes.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .iterate import Iterate, total_violation, violated_cons_multipliers
@@ -28,35 +30,63 @@ from .types import INF_THRESHOLD
 Tensor = torch.Tensor
 
 _MAX_IT = 200  # delta/alpha shrink past 1e-60 with tau=.5; 200 is ample
+MAX_TRIALS = _MAX_IT + 1  # a linesearch's trials
 
 
-def cauchy_linesearch(data: ProblemData, it: Iterate, direction: Direction, penalty: Tensor,
-                      trust_radius: Tensor, tau: float, eta: float, eps: float):
-    """Scale the Cauchy direction; returns (direction, full_step, quad_merit)."""
+class CauchySearch(NamedTuple):
+    """What the Cauchy linesearch's trials take from its start."""
+
+    exact_violation: Tensor
+    hess_bilinear: Tensor
+    delta0: Tensor
+
+
+def cauchy_search(data: ProblemData, it: Iterate, direction: Direction,
+                  trust_radius: Tensor):
+    """(``CauchySearch``, the loop state before the first trial)."""
     exact_violation = total_violation(data, it.cons_val)
     hess_bilinear = torch.dot(direction.primal, direction.hess)
 
     norm = torch.linalg.norm(direction.primal)
     delta0 = torch.clamp(trust_radius / torch.where(norm > 0.0, norm, 1.0), max=1.0)
+    not_done = torch.zeros_like(delta0, dtype=torch.bool)
+    return CauchySearch(exact_violation, hess_bilinear, delta0), (delta0, not_done)
+
+
+def cauchy_trial(data: ProblemData, it: Iterate, direction: Direction, penalty: Tensor,
+                 cs: CauchySearch, tau: float, eta: float, eps: float):
+    """One trial of the Cauchy linesearch, ``body(s, trip)``."""
 
     def body(s, trip):
         delta = s[0]
         lin_viol = total_violation(data, it.cons_val + delta * direction.cons_jac_dot)
-        lhs = (penalty * (exact_violation - lin_viol) - delta * direction.obj_dot) * (1.0 - eta)
-        ok = lhs >= 0.5 * delta * delta * hess_bilinear
+        lhs = (penalty * (cs.exact_violation - lin_viol) - delta * direction.obj_dot) * (1.0 - eta)
+        ok = lhs >= 0.5 * delta * delta * cs.hess_bilinear
         delta_next = torch.where(ok, delta, delta * tau)
         vanished = delta_next <= eps
         return torch.where(vanished, 0.0, delta_next), ok | vanished
 
-    not_done = torch.zeros_like(delta0, dtype=torch.bool)
-    delta, _ = lockstep(lambda s: ~s[1], body, (delta0, not_done), max_trips=_MAX_IT + 1,
-                        first=True)
+    return body
 
+
+def cauchy_result(data: ProblemData, it: Iterate, direction: Direction, penalty: Tensor,
+                  cs: CauchySearch, delta: Tensor):
+    """(the scaled direction, whether the step is full, its quadratic
+    merit) at the linesearch's end."""
     scaled = direction.scale(delta)
     lin_viol = total_violation(data, it.cons_val + scaled.cons_jac_dot)
     quad_merit = (it.obj_val + scaled.obj_dot + penalty * lin_viol
                   + 0.5 * torch.dot(scaled.primal, scaled.hess))
-    return scaled, delta >= delta0, quad_merit
+    return scaled, delta >= cs.delta0, quad_merit
+
+
+def cauchy_linesearch(data: ProblemData, it: Iterate, direction: Direction, penalty: Tensor,
+                      trust_radius: Tensor, tau: float, eta: float, eps: float):
+    """Scale the Cauchy direction; returns (direction, full_step, quad_merit)."""
+    cs, s0 = cauchy_search(data, it, direction, trust_radius)
+    body = cauchy_trial(data, it, direction, penalty, cs, tau, eta, eps)
+    delta, _ = lockstep(lambda s: ~s[1], body, s0, max_trips=MAX_TRIALS, first=True)
+    return cauchy_result(data, it, direction, penalty, cs, delta)
 
 
 def max_step_length(point: Tensor, direction: Tensor, lb: Tensor, ub: Tensor) -> Tensor:
@@ -79,12 +109,18 @@ def _segment_products(cauchy_dir: Direction, newton_dir: Direction):
     return cc, cn, nn
 
 
-def trial_linesearch(data: ProblemData, it: Iterate, cauchy_dir: Direction,
-                     cauchy_quad_merit: Tensor, newton_dir: Direction, penalty: Tensor,
-                     tau: float, eta: float, cutoff: float):
-    """Blend Cauchy -> Newton (APPROX rule).  Returns (trial_direction,
-    step length alpha, trial quadratic merit); alpha = 0 reproduces the
-    Cauchy direction."""
+class TrialSearch(NamedTuple):
+    """What the trial linesearch's trials take from its start."""
+
+    cc: Tensor
+    cn: Tensor
+    nn: Tensor
+    merit_grad_product: Tensor
+
+
+def trial_search(data: ProblemData, it: Iterate, cauchy_dir: Direction,
+                 newton_dir: Direction, cutoff: float):
+    """(``TrialSearch``, the loop state before the first trial)."""
     cc, cn, nn = _segment_products(cauchy_dir, newton_dir)
 
     cauchy_newton = newton_dir.primal - cauchy_dir.primal
@@ -95,31 +131,61 @@ def trial_linesearch(data: ProblemData, it: Iterate, cauchy_dir: Direction,
     viol_mult = violated_cons_multipliers(data, it.cons_val + cauchy_dir.cons_jac_dot)
     grad_cauchy = cauchy_dir.obj_dot + torch.dot(viol_mult, cauchy_dir.cons_jac_dot) + cc
     grad_newton = newton_dir.obj_dot + torch.dot(viol_mult, newton_dir.cons_jac_dot) + cn
-    merit_grad_product = grad_newton - grad_cauchy
+    start_vanished = alpha0 <= cutoff
+    return (TrialSearch(cc, cn, nn, grad_newton - grad_cauchy),
+            (torch.where(start_vanished, 0.0, alpha0), start_vanished))
 
-    def quad_merit(alpha):
-        lin = it.obj_val + (1.0 - alpha) * cauchy_dir.obj_dot + alpha * newton_dir.obj_dot
-        combined = (it.cons_val + (1.0 - alpha) * cauchy_dir.cons_jac_dot
-                    + alpha * newton_dir.cons_jac_dot)
-        lin = lin + penalty * total_violation(data, combined)
-        quad_term = 0.5 * (1.0 - alpha) ** 2 * cc + alpha * ((1.0 - alpha) * cn + 0.5 * alpha * nn)
-        return lin + quad_term
+
+def _trial_quad_merit(data: ProblemData, it: Iterate, cauchy_dir: Direction,
+                      newton_dir: Direction, penalty: Tensor, ts: TrialSearch, alpha: Tensor):
+    lin = it.obj_val + (1.0 - alpha) * cauchy_dir.obj_dot + alpha * newton_dir.obj_dot
+    combined = (it.cons_val + (1.0 - alpha) * cauchy_dir.cons_jac_dot
+                + alpha * newton_dir.cons_jac_dot)
+    lin = lin + penalty * total_violation(data, combined)
+    quad_term = (0.5 * (1.0 - alpha) ** 2 * ts.cc
+                 + alpha * ((1.0 - alpha) * ts.cn + 0.5 * alpha * ts.nn))
+    return lin + quad_term
+
+
+def trial_trial(data: ProblemData, it: Iterate, cauchy_dir: Direction,
+                cauchy_quad_merit: Tensor, newton_dir: Direction, penalty: Tensor,
+                ts: TrialSearch, tau: float, eta: float, cutoff: float):
+    """One trial of the trial linesearch, ``body(s, trip)``."""
 
     def body(s, trip):
         alpha = s[0]
-        ok = quad_merit(alpha) <= cauchy_quad_merit + eta * alpha * merit_grad_product
+        ok = (_trial_quad_merit(data, it, cauchy_dir, newton_dir, penalty, ts, alpha)
+              <= cauchy_quad_merit + eta * alpha * ts.merit_grad_product)
         alpha_next = torch.where(ok, alpha, alpha * tau)
         vanished = alpha_next <= cutoff
         return torch.where(vanished, 0.0, alpha_next), ok | vanished
 
-    start_vanished = alpha0 <= cutoff
-    alpha, _ = lockstep(lambda s: ~s[1], body,
-                        (torch.where(start_vanished, 0.0, alpha0), start_vanished),
-                        max_trips=_MAX_IT + 1)
+    return body
 
+
+def trial_result(data: ProblemData, it: Iterate, cauchy_dir: Direction,
+                 cauchy_quad_merit: Tensor, newton_dir: Direction, penalty: Tensor,
+                 ts: TrialSearch, alpha: Tensor):
+    """(the trial direction, alpha, the trial quadratic merit) at the
+    linesearch's end."""
     trial = blend(cauchy_dir, newton_dir, alpha)
-    trial_merit = torch.where(alpha > 0.0, quad_merit(alpha), cauchy_quad_merit)
+    trial_merit = torch.where(
+        alpha > 0.0, _trial_quad_merit(data, it, cauchy_dir, newton_dir, penalty, ts, alpha),
+        cauchy_quad_merit)
     return trial, alpha, trial_merit
+
+
+def trial_linesearch(data: ProblemData, it: Iterate, cauchy_dir: Direction,
+                     cauchy_quad_merit: Tensor, newton_dir: Direction, penalty: Tensor,
+                     tau: float, eta: float, cutoff: float):
+    """Blend Cauchy -> Newton (APPROX rule).  Returns (trial_direction,
+    step length alpha, trial quadratic merit); alpha = 0 reproduces the
+    Cauchy direction."""
+    ts, s0 = trial_search(data, it, cauchy_dir, newton_dir, cutoff)
+    body = trial_trial(data, it, cauchy_dir, cauchy_quad_merit, newton_dir, penalty, ts, tau,
+                       eta, cutoff)
+    alpha, _ = lockstep(lambda s: ~s[1], body, s0, max_trips=MAX_TRIALS)
+    return trial_result(data, it, cauchy_dir, cauchy_quad_merit, newton_dir, penalty, ts, alpha)
 
 
 def trial_linesearch_exact(data: ProblemData, it: Iterate, cauchy_dir: Direction,

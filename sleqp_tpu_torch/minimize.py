@@ -324,6 +324,7 @@ def minimize(
 
     func = Func(obj, num_variables=n, cons=cons, num_cons=num_general, obj_grad=obj_grad,
                 cons_jac=cons_jac, hess_prod=hess_prod)
+    func.runs_on_host = not traceable
     problem = Problem(func, var_lb=var_lb, var_ub=var_ub, general_lb=general_lb,
                       general_ub=general_ub, linear_coeffs=lin_A, linear_lb=lin_lb,
                       linear_ub=lin_ub, device=device)

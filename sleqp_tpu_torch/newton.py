@@ -97,6 +97,42 @@ class NewtonResult:
     tr: TRResult
 
 
+def newton_gradient(it: Iterate, ws: WorkingStep, hess_prod: Callable[[Tensor], Tensor],
+                    penalty: Tensor) -> Tensor:
+    """The EQP gradient grad f + H d0 + penalty J^T violated_mult."""
+    return it.obj_grad + hess_prod(ws.step) + penalty * (it.cons_jac.T @ ws.violated_mult)
+
+
+def krylov_inputs(aug_jac: AugJac, gradient: Tensor, ws: WorkingStep, compute_dtype):
+    """(the factorization, gradient, radius and initial projection, or
+    None) the Krylov loop takes, in ``compute_dtype``."""
+    if compute_dtype == gradient.dtype:
+        return aug_jac, gradient, ws.reduced_trust_radius, None
+    # near convergence P g cancels catastrophically: project at full
+    # precision and hand it to the Krylov loop
+    return (aug_jac.to(compute_dtype), gradient.to(compute_dtype),
+            ws.reduced_trust_radius.to(compute_dtype),
+            project_nullspace(aug_jac, gradient).to(compute_dtype))
+
+
+def newton_result(it: Iterate, ws: WorkingStep, tr: TRResult,
+                  hess_prod: Callable[[Tensor], Tensor]) -> NewtonResult:
+    """The Newton direction d0 + t from the Krylov loop's step t."""
+    sdtype = it.obj_grad.dtype
+    if tr.step.dtype != sdtype:
+        tr = TRResult(
+            step=tr.step.to(sdtype),
+            on_boundary=tr.on_boundary,
+            iterations=tr.iterations,
+            min_rayleigh=tr.min_rayleigh.to(sdtype),
+            max_rayleigh=tr.max_rayleigh.to(sdtype),
+        )
+    # degenerate radius: only the initial step survives (newton.c:501-508)
+    zero_radius = ws.reduced_trust_radius <= 1e-20
+    step = torch.where(zero_radius, ws.step, ws.step + tr.step)
+    return NewtonResult(direction=make_direction(it, step, hess_prod(step)), tr=tr)
+
+
 def compute_newton_step(
     data: ProblemData,
     it: Iterate,
@@ -119,32 +155,14 @@ def compute_newton_step(
     computed in the state dtype.
     """
     sdtype = it.obj_grad.dtype
-    gradient = it.obj_grad + hess_prod(ws.step) + penalty * (it.cons_jac.T @ ws.violated_mult)
-
+    gradient = newton_gradient(it, ws, hess_prod, penalty)
     cd = compute_dtype if compute_dtype is not None else sdtype
+    aug_c, grad_c, rad_c, p0 = krylov_inputs(aug_jac, gradient, ws, cd)
     if cd != sdtype:
         hp_c = hess_prod_compute or (lambda d: hess_prod(d.to(sdtype)).to(cd))
-        aug_c = aug_jac.to(cd)
-        grad_c = gradient.to(cd)
-        rad_c = ws.reduced_trust_radius.to(cd)
-        # near convergence P g cancels catastrophically: project at full
-        # precision and hand it to the Krylov loop
-        p0 = project_nullspace(aug_jac, gradient).to(cd)
     else:
-        hp_c, aug_c, grad_c, rad_c = hess_prod, aug_jac, gradient, ws.reduced_trust_radius
-        p0 = None
+        hp_c = hess_prod
 
     solver = gltr if use_gltr else steihaug_cg
     tr = solver(hp_c, aug_c, grad_c, rad_c, max_iterations=max_iterations, p0=p0)
-    if cd != sdtype:
-        tr = TRResult(
-            step=tr.step.to(sdtype),
-            on_boundary=tr.on_boundary,
-            iterations=tr.iterations,
-            min_rayleigh=tr.min_rayleigh.to(sdtype),
-            max_rayleigh=tr.max_rayleigh.to(sdtype),
-        )
-    # degenerate radius: only the initial step survives (newton.c:501-508)
-    zero_radius = ws.reduced_trust_radius <= 1e-20
-    step = torch.where(zero_radius, ws.step, ws.step + tr.step)
-    return NewtonResult(direction=make_direction(it, step, hess_prod(step)), tr=tr)
+    return newton_result(it, ws, tr, hess_prod)

@@ -35,7 +35,7 @@ on one lane and under ``vmap``.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -111,23 +111,27 @@ def _tridiag_tr_solve(
     return h, torch.where(interior, 0.0, lam), interior
 
 
-def gltr(
-    hess_prod: Callable[[Tensor], Tensor],
-    aug_jac: AugJac,
-    gradient: Tensor,
-    radius: Tensor,
-    max_iterations: int,
-    rel_tol: float = 1e-8,
-    p0: Tensor | None = None,
-) -> TRResult:
-    """GLTR solve; interface as ``steihaug_cg``.  ``p0`` optionally supplies
-    the initial nullspace projection of the gradient (the mixed-precision
-    caller computes it in float64: near convergence ``P g`` cancels
-    catastrophically)."""
+class GLTRSetup(NamedTuple):
+    """What GLTR's Lanczos steps take from its start."""
+
+    gamma0: Tensor  # ||P g||
+    tol: Tensor
+    trivial: Tensor  # P g vanishes
+    radius: Tensor
+
+
+def gltr_size(n: int, max_iterations: int) -> int:
+    """K, the Lanczos steps at most (the basis's rows)."""
+    return min(max(int(max_iterations), 1), n + 1)
+
+
+def gltr_start(aug_jac: AugJac, gradient: Tensor, radius: Tensor, max_iterations: int,
+               rel_tol: float = 1e-8, p0: Tensor | None = None):
+    """(``GLTRSetup``, the loop state before the first Lanczos step)."""
     n = gradient.shape[0]
     dtype, dev = gradient.dtype, gradient.device
     radius = torch.as_tensor(radius, dtype=dtype, device=dev)
-    K = min(max(int(max_iterations), 1), n + 1)
+    K = gltr_size(n, max_iterations)
     finfo = torch.finfo(dtype)
 
     p0 = project_nullspace(aug_jac, gradient) if p0 is None else p0.to(dtype)
@@ -152,11 +156,22 @@ def gltr(
         iters=torch.zeros((), dtype=torch.int32, device=dev),
         done=trivial,
     )
+    return GLTRSetup(gamma0, tol, trivial, radius), init
+
+
+def gltr_body(hess_prod: Callable[[Tensor], Tensor], aug_jac: AugJac, setup: GLTRSetup,
+              K: int):
+    """One Lanczos step with its reduced trust-region solve,
+    ``body(s, trip)``: trip t is Lanczos step t + 1 on every lane still
+    iterating, so the body's shapes depend on the trip."""
+    gamma0, tol, radius = setup.gamma0, setup.tol, setup.radius
+    eps = float(torch.finfo(gamma0.dtype).eps)
+    rows = torch.arange(K, device=gamma0.device)
 
     def body(s, trip):
+        V = s["V"]
         k = trip + 1  # the active dimension on every lane still iterating
         j = trip  # current Lanczos index
-        V = s["V"]
         v_j = V[j]
         w = project_nullspace(aug_jac, hess_prod(v_j))
         alpha_j = torch.dot(v_j, w)
@@ -185,9 +200,15 @@ def gltr(
                     max_ray=torch.maximum(s["max_ray"], alpha_j),
                     iters=s["iters"] + 1, done=stop)
 
-    final = lockstep(lambda s: ~s["done"], body, init, max_trips=K)
+    return body
+
+
+def gltr_result(setup: GLTRSetup, final: dict) -> TRResult:
+    """The trust-region step from GLTR's final loop state."""
+    finfo = torch.finfo(setup.gamma0.dtype)
+    radius = setup.radius
     d = final["V"].T @ final["h"]
-    d = torch.where(trivial, 0.0, d)
+    d = torch.where(setup.trivial, 0.0, d)
     # final safeguard: never exceed the radius
     dn = torch.linalg.norm(d)
     d = d * torch.where(dn > radius, radius / torch.clamp(dn, min=finfo.tiny), 1.0)
@@ -200,3 +221,23 @@ def gltr(
         min_rayleigh=torch.where(zero_spectrum, 0.0, final["min_ray"]),
         max_rayleigh=torch.where(zero_spectrum, 0.0, final["max_ray"]),
     )
+
+
+def gltr(
+    hess_prod: Callable[[Tensor], Tensor],
+    aug_jac: AugJac,
+    gradient: Tensor,
+    radius: Tensor,
+    max_iterations: int,
+    rel_tol: float = 1e-8,
+    p0: Tensor | None = None,
+) -> TRResult:
+    """GLTR solve; interface as ``steihaug_cg``.  ``p0`` optionally supplies
+    the initial nullspace projection of the gradient (the mixed-precision
+    caller computes it in float64: near convergence ``P g`` cancels
+    catastrophically)."""
+    setup, init = gltr_start(aug_jac, gradient, radius, max_iterations, rel_tol, p0)
+    K = init["V"].shape[0]
+    final = lockstep(lambda s: ~s["done"], gltr_body(hess_prod, aug_jac, setup, K), init,
+                     max_trips=K)
+    return gltr_result(setup, final)

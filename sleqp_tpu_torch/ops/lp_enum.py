@@ -114,7 +114,8 @@ def solve_enum(A: Tensor, c: Tensor, lb: Tensor, ub: Tensor,
     dual_ok = ~((pos & ~finite_lb[None, :]) | (neg & ~finite_ub[None, :])).any(dim=1)
 
     basic_mask = torch.zeros((K, N), dtype=torch.bool, device=dev)
-    basic_mask[torch.arange(K, device=dev)[:, None], idx] = True
+    basic_mask[torch.arange(K, device=dev)[:, None], idx] = torch.ones((), dtype=torch.bool,
+                                                                     device=dev)
     v = torch.where(basic_mask, 0.0, v)
 
     rhs = -(v @ A.T)  # (K, m)

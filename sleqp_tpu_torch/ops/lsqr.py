@@ -14,7 +14,7 @@ that has stopped keeps its iterate while the others go on.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -27,17 +27,17 @@ def _safe(v: Tensor) -> Tensor:
     return torch.where(v > 0.0, v, 1.0)
 
 
-def lsqr_tr(
-    forward: Callable[[Tensor], Tensor],
-    adjoint: Callable[[Tensor], Tensor],
-    b: Tensor,
-    radius,
-    n: int,
-    max_iterations: int,
-    rel_tol: float = 1e-8,
-):
-    """Returns (the boundary-clipped LSQR iterate minimizing ||b - A d||,
-    the number of steps as an int32 tensor)."""
+class LSQRSetup(NamedTuple):
+    """What the LSQR steps take from their start."""
+
+    tol: Tensor
+    radius: Tensor
+
+
+def lsqr_start(adjoint: Callable[[Tensor], Tensor], b: Tensor, radius, n: int,
+               rel_tol: float = 1e-8):
+    """(``LSQRSetup``, the loop state before the first step: (u, v, d, w,
+    alpha, beta, phi_bar, rho_bar, steps, done))."""
     dtype, dev = b.dtype, b.device
     radius = torch.as_tensor(radius, dtype=dtype, device=dev)
 
@@ -48,14 +48,22 @@ def lsqr_tr(
     v0 = v_raw / _safe(alpha0)
     tol = rel_tol * alpha0 * beta0
 
-    # (u, v, d, w, alpha, beta, phi_bar, rho_bar, steps, done)
     d0 = torch.zeros((n,), dtype=dtype, device=dev)
     steps0 = torch.zeros((), dtype=torch.int32, device=dev)
     state = (u0, v0, d0, v0, alpha0, beta0, beta0, alpha0, steps0,
              (beta0 == 0.0) | (alpha0 == 0.0))
+    return LSQRSetup(tol, radius), state
 
-    def cond(s):
-        return ~s[9] & (s[8] < max_iterations)
+
+def lsqr_running(s: tuple, max_iterations: int) -> Tensor:
+    """Whether the LSQR loop in state ``s`` goes on."""
+    return ~s[9] & (s[8] < max_iterations)
+
+
+def lsqr_body(forward: Callable[[Tensor], Tensor], adjoint: Callable[[Tensor], Tensor],
+              setup: LSQRSetup):
+    """One LSQR step, ``body(s, trip)``."""
+    tol, radius = setup.tol, setup.radius
 
     def body(s, trip):
         u, v, d, w, alpha, beta, phi_bar, rho_bar, steps, _ = s
@@ -87,5 +95,21 @@ def lsqr_tr(
         converged = (phi_bar * alpha * c).abs() <= tol
         return (u, v, d, w, alpha, beta, phi_bar, rho_bar, steps + 1, crosses | converged)
 
-    final = lockstep(cond, body, state, max_trips=max_iterations)
+    return body
+
+
+def lsqr_tr(
+    forward: Callable[[Tensor], Tensor],
+    adjoint: Callable[[Tensor], Tensor],
+    b: Tensor,
+    radius,
+    n: int,
+    max_iterations: int,
+    rel_tol: float = 1e-8,
+):
+    """Returns (the boundary-clipped LSQR iterate minimizing ||b - A d||,
+    the number of steps as an int32 tensor)."""
+    setup, state = lsqr_start(adjoint, b, radius, n, rel_tol)
+    final = lockstep(lambda s: lsqr_running(s, max_iterations), lsqr_body(forward, adjoint, setup),
+                     state, max_trips=max_iterations)
     return final[2], final[8]

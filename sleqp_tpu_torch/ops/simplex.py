@@ -151,36 +151,25 @@ def _refactor_due(trip: int, refactor_every: int) -> bool:
     return (trip + 1) % refactor_every == 0
 
 
-def solve_dual(
-    A: Tensor,
-    c: Tensor,
-    lb: Tensor,
-    ub: Tensor,
-    basis: Tensor,
-    status: Tensor,
-    max_iterations: int,
-    feas_tol: float | None = None,
-    piv_tol: float | None = None,
-    refactor_every: int = 64,
-    bland_after: int = 100,
-    first: Any = True,
-) -> DualStageResult:
-    """Bounded-variable dual simplex from a dual-feasible basis.
+def dual_start(A: Tensor, lb: Tensor, ub: Tensor, basis: Tensor, status: Tensor) -> dict:
+    """The dual pass's loop state before its first pivot: the basis
+    inverse and basic values of ``basis``."""
+    dev = A.device
+    basis = torch.as_tensor(basis, dtype=torch.int32, device=dev)
+    status = torch.as_tensor(status, dtype=torch.int8, device=dev)
+    B_inv, xB = _recompute(A, basis, status, lb, ub)
+    return dict(B_inv=B_inv, xB=xB, basis=basis, status=status,
+                stall=_i32(0, dev), state=_i32(-1, dev), it=_i32(0, dev))
 
-    Runs until primal feasible (state OPTIMAL: dual feasibility is kept, so
-    the basis is then optimal), the iteration cap, or a failed dual ratio
-    test (DUAL_STALL; the caller falls back to a crash basis).  ``first``
-    gives the lanes that run: the others keep the starting basis, no pivot
-    and ITERATION_LIMIT."""
+
+def dual_body(A: Tensor, c: Tensor, lb: Tensor, ub: Tensor, feas_tol: float | None = None,
+              piv_tol: float | None = None, refactor_every: int = 64, bland_after: int = 100):
+    """One dual pivot, ``body(s, trip)`` of the dual pass's loop."""
     m, N = A.shape
     dtype, dev = A.dtype, A.device
     tols = default_tols(dtype)
     feas_tol = tols["feas_tol"] if feas_tol is None else feas_tol
     piv_tol = tols["piv_tol"] if piv_tol is None else piv_tol
-    basis = torch.as_tensor(basis, dtype=torch.int32, device=dev)
-    status = torch.as_tensor(status, dtype=torch.int8, device=dev)
-
-    B_inv, xB = _recompute(A, basis, status, lb, ub)
     ptol = feas_tol * (1.0 + torch.where(_finite(lb), lb, 0.0).abs().amax()
                        + torch.where(_finite(ub), ub, 0.0).abs().amax())
     col_idx = torch.arange(N, dtype=torch.int32, device=dev)
@@ -269,9 +258,11 @@ def solve_dual(
                               torch.where(stalled, DUAL_STALL, s["state"])).to(torch.int32),
             it=s["it"] + step.to(torch.int32))
 
-    s = _run(body, dict(B_inv=B_inv, xB=xB, basis=basis, status=status,
-                        stall=_i32(0, dev), state=_i32(-1, dev), it=_i32(0, dev)),
-             max_iterations, first)
+    return body
+
+
+def dual_result(s: dict) -> DualStageResult:
+    """The dual pass's result from its final loop state."""
     return DualStageResult(
         basis=s["basis"],
         status=s["status"],
@@ -280,25 +271,7 @@ def solve_dual(
     )
 
 
-def _i32(v: int, dev) -> Tensor:
-    return torch.full((), v, dtype=torch.int32, device=dev)
-
-
-def _run(body, state: dict, max_iterations: int, first: Any) -> dict:
-    """The pivoting loop: ``body`` while a lane runs (state < 0) under its
-    pivot cap.  The cap is part of the flag read after each trip, so one
-    LP reads once per body, as a loop that reads its state after each
-    pivot does.  A lane outside ``first`` starts at ITERATION_LIMIT, so no
-    trip runs it."""
-    if max_iterations <= 0:
-        return state
-    if isinstance(first, Tensor):
-        state = dict(state, state=torch.where(first, state["state"], ITERATION_LIMIT))
-    return lockstep(lambda s: (s["state"] < 0) & (s["it"] < max_iterations), body, state,
-                    first=first)
-
-
-def solve(
+def solve_dual(
     A: Tensor,
     c: Tensor,
     lb: Tensor,
@@ -306,29 +279,85 @@ def solve(
     basis: Tensor,
     status: Tensor,
     max_iterations: int,
-    opt_tol: float | None = None,
+    feas_tol: float | None = None,
     piv_tol: float | None = None,
     refactor_every: int = 64,
     bland_after: int = 100,
     first: Any = True,
-) -> SimplexResult:
-    """Run the primal simplex from a primal-feasible starting basis.
+) -> DualStageResult:
+    """Bounded-variable dual simplex from a dual-feasible basis.
 
-    ``basis[i]`` is the column basic in row i; ``status`` must satisfy
-    ``status[basis] == BASIC`` and mark every other column LOWER/UPPER/ZERO.
-    ``first`` gives the lanes that run: the others keep the starting
-    basis, no pivot and ITERATION_LIMIT.
-    """
+    Runs until primal feasible (state OPTIMAL: dual feasibility is kept, so
+    the basis is then optimal), the iteration cap, or a failed dual ratio
+    test (DUAL_STALL; the caller falls back to a crash basis).  ``first``
+    gives the lanes that run: the others keep the starting basis, no pivot
+    and ITERATION_LIMIT."""
+    s = dual_start(A, lb, ub, basis, status)
+    body = dual_body(A, c, lb, ub, feas_tol, piv_tol, refactor_every, bland_after)
+    return dual_result(_run(body, s, max_iterations, first))
+
+
+def _i32(v: int, dev) -> Tensor:
+    return torch.full((), v, dtype=torch.int32, device=dev)
+
+
+def running(s: dict, cap) -> Tensor:
+    """Whether a pivoting loop in state ``s`` goes on: no end state yet,
+    fewer than ``cap`` pivots.  A trip that does not pivot (or flip) ends
+    the loop, so a loop makes at most ``cap`` trips."""
+    return (s["state"] < 0) & (s["it"] < cap)
+
+
+def _run(body, state: dict, max_iterations: int, first: Any) -> dict:
+    """The pivoting loop: ``body`` while a lane runs (state < 0) under its
+    pivot cap, which bounds its trips too.  The cap is part of the flag
+    read after each trip, so one LP reads once per body, as a loop that
+    reads its state after each pivot does.  A lane outside ``first``
+    starts at ITERATION_LIMIT, so no trip runs it."""
+    if max_iterations <= 0:
+        return state
+    if isinstance(first, Tensor):
+        state = dict(state, state=torch.where(first, state["state"], ITERATION_LIMIT))
+    return lockstep(lambda s: running(s, max_iterations), body, state,
+                    max_trips=max_iterations, first=first)
+
+
+def pivot_block(body, s: dict, cap: int, length: int, refactor: bool,
+                refactor_every: int = 64) -> dict:
+    """``length`` trips of a pivoting loop from ``s`` (a read-free block of
+    the loop under ``lanes.device_resident()``, masked where it stops):
+    the trips of a block that does not start the loop.  ``refactor`` says
+    whether its last trip is one whose pivot refactorizes (the loop's trip
+    ``refactor_every - 1`` modulo ``refactor_every``); no other trip of the
+    block refactorizes, so ``length < refactor_every``."""
+    assert 0 < length < refactor_every
+    offset = refactor_every - length if refactor else 0
+    return lockstep(lambda s: running(s, cap), lambda s, trip: body(s, trip + offset), s,
+                    max_trips=length)
+
+
+def primal_start(A: Tensor, lb: Tensor, ub: Tensor, basis: Tensor, status: Tensor) -> dict:
+    """The primal pass's loop state before its first pivot: the basis
+    inverse and basic values of ``basis``, unit Devex weights."""
+    dtype, dev = A.dtype, A.device
+    basis = torch.as_tensor(basis, dtype=torch.int32, device=dev)
+    status = torch.as_tensor(status, dtype=torch.int8, device=dev)
+    B_inv, xB = _recompute(A, basis, status, lb, ub)
+    return dict(B_inv=B_inv, xB=xB, basis=basis, status=status,
+                gamma=torch.ones((A.shape[1],), dtype=dtype, device=dev),  # Devex weights
+                stall=_i32(0, dev), state=_i32(-1, dev), it=_i32(0, dev))
+
+
+def primal_body(A: Tensor, c: Tensor, lb: Tensor, ub: Tensor, opt_tol: float | None = None,
+                piv_tol: float | None = None, refactor_every: int = 64, bland_after: int = 100):
+    """One primal pivot (or bound flip), ``body(s, trip)`` of the primal
+    pass's loop."""
     m, N = A.shape
     dtype, dev = A.dtype, A.device
     tols = default_tols(dtype)
     opt_tol = tols["opt_tol"] if opt_tol is None else opt_tol
     piv_tol = tols["piv_tol"] if piv_tol is None else piv_tol
     degen_tol = tols["degen_tol"]
-    basis = torch.as_tensor(basis, dtype=torch.int32, device=dev)
-    status = torch.as_tensor(status, dtype=torch.int8, device=dev)
-
-    B_inv, xB = _recompute(A, basis, status, lb, ub)
     # relative optimality tolerance: penalty objectives can be huge
     tol = opt_tol * (1.0 + c.abs().amax())
 
@@ -451,10 +480,11 @@ def solve(
                               torch.where(unbounded, UNBOUNDED, s["state"])).to(torch.int32),
             it=s["it"] + (~ends).to(torch.int32))
 
-    s = _run(body, dict(B_inv=B_inv, xB=xB, basis=basis, status=status,
-                        gamma=torch.ones((N,), dtype=dtype, device=dev),  # Devex weights
-                        stall=_i32(0, dev), state=_i32(-1, dev), it=_i32(0, dev)),
-             max_iterations, first)
+    return body
+
+
+def primal_result(A: Tensor, c: Tensor, lb: Tensor, ub: Tensor, s: dict) -> SimplexResult:
+    """The primal pass's result from its final loop state."""
     basis, status, B_inv = s["basis"], s["status"], s["B_inv"]
     x = _nonbasic_value(status, lb, ub).index_put((basis.long(),), s["xB"])
     y = c.index_select(0, basis.long()) @ B_inv
@@ -470,6 +500,32 @@ def solve(
         iterations=s["it"],
         condition=_condition(A, basis, B_inv),
     )
+
+
+def solve(
+    A: Tensor,
+    c: Tensor,
+    lb: Tensor,
+    ub: Tensor,
+    basis: Tensor,
+    status: Tensor,
+    max_iterations: int,
+    opt_tol: float | None = None,
+    piv_tol: float | None = None,
+    refactor_every: int = 64,
+    bland_after: int = 100,
+    first: Any = True,
+) -> SimplexResult:
+    """Run the primal simplex from a primal-feasible starting basis.
+
+    ``basis[i]`` is the column basic in row i; ``status`` must satisfy
+    ``status[basis] == BASIC`` and mark every other column LOWER/UPPER/ZERO.
+    ``first`` gives the lanes that run: the others keep the starting
+    basis, no pivot and ITERATION_LIMIT.
+    """
+    s = primal_start(A, lb, ub, basis, status)
+    body = primal_body(A, c, lb, ub, opt_tol, piv_tol, refactor_every, bland_after)
+    return primal_result(A, c, lb, ub, _run(body, s, max_iterations, first))
 
 
 def refine_result(A: Tensor, c: Tensor, lb: Tensor, ub: Tensor,
@@ -498,6 +554,14 @@ def refine_result(A: Tensor, c: Tensor, lb: Tensor, ub: Tensor,
     )
 
 
+def polish_fallback(A: Tensor, c: Tensor, lb: Tensor, ub: Tensor,
+                    res: SimplexResult) -> SimplexResult:
+    """``polish_full_precision``'s result where its dual stage cannot
+    restore feasibility: ``res`` refined, no pivot of its own."""
+    out = refine_result(A, c, lb, ub, res)
+    return out._replace(iterations=torch.zeros_like(out.iterations))
+
+
 def polish_full_precision(A: Tensor, c: Tensor, lb: Tensor, ub: Tensor,
                           res: SimplexResult, max_iterations: int,
                           first: Any = True) -> SimplexResult:
@@ -512,17 +576,13 @@ def polish_full_precision(A: Tensor, c: Tensor, lb: Tensor, ub: Tensor,
                       first=first)
     ok = dres.state == OPTIMAL
 
-    def fallback():
-        out = refine_result(A, c, lb, ub, res)
-        return out._replace(iterations=torch.zeros_like(out.iterations))
-
     if lanes_any(ok):
         out = solve(A, c, lb, ub, dres.basis, dres.status, max_iterations=max_iterations,
                     first=ok)
         if is_batched(ok):
-            out = tree_where(ok, out, fallback())
+            out = tree_where(ok, out, polish_fallback(A, c, lb, ub, res))
     else:
-        out = fallback()
+        out = polish_fallback(A, c, lb, ub, res)
     return out._replace(iterations=res.iterations + dres.iterations + out.iterations)
 
 

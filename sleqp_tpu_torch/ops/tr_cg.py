@@ -14,7 +14,7 @@ Also records the min/max Rayleigh quotients met (newton.c:318-346).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -44,19 +44,16 @@ def _boundary_tau(d: Tensor, p: Tensor, radius: Tensor) -> Tensor:
     return torch.where(pp > 0.0, tau, 0.0)
 
 
-def steihaug_cg(
-    hess_prod: Callable[[Tensor], Tensor],
-    aug_jac: AugJac,
-    gradient: Tensor,
-    radius: Tensor,
-    max_iterations: int,
-    rel_tol: float = 1e-8,
-    abs_tol: float = 1e-12,
-    p0: Tensor | None = None,
-) -> TRResult:
-    """Projected CG with Steihaug boundary handling.  ``p0`` optionally
-    supplies the initial nullspace projection (the mixed-precision caller
-    passes one computed in float64)."""
+class CGSetup(NamedTuple):
+    """What the projected CG steps take from their start."""
+
+    tol_sq: Tensor
+    radius: Tensor
+
+
+def cg_start(aug_jac: AugJac, gradient: Tensor, radius: Tensor, rel_tol: float = 1e-8,
+             abs_tol: float = 1e-12, p0: Tensor | None = None):
+    """(``CGSetup``, the loop state before the first CG step)."""
     n = gradient.shape[0]
     dtype, dev = gradient.dtype, gradient.device
     radius = torch.as_tensor(radius, dtype=dtype, device=dev)
@@ -78,6 +75,17 @@ def steihaug_cg(
         iters=torch.zeros((), dtype=torch.int32, device=dev),
         done=rz <= tol_sq,
     )
+    return CGSetup(tol_sq, radius), init
+
+
+def cg_running(s: dict, max_iterations: int) -> Tensor:
+    """Whether the CG loop in state ``s`` goes on: not done, below the cap."""
+    return ~s["done"] & (s["iters"] < max_iterations)
+
+
+def cg_body(hess_prod: Callable[[Tensor], Tensor], aug_jac: AugJac, setup: CGSetup):
+    """One Steihaug CG step, ``body(s, trip)``."""
+    tol_sq, radius = setup.tol_sq, setup.radius
 
     def body(s, trip):
         d, r, p, rz = s["d"], s["r"], s["p"], s["rz"]
@@ -117,7 +125,11 @@ def steihaug_cg(
             done=hit_boundary | converged,
         )
 
-    final = lockstep(lambda s: ~s["done"], body, init, max_trips=max_iterations)
+    return body
+
+
+def cg_result(final: dict) -> TRResult:
+    """The trust-region step from the CG loop's final state."""
     zero_spectrum = final["iters"] == 0
     return TRResult(
         step=final["d"],
@@ -126,3 +138,22 @@ def steihaug_cg(
         min_rayleigh=torch.where(zero_spectrum, 0.0, final["min_ray"]),
         max_rayleigh=torch.where(zero_spectrum, 0.0, final["max_ray"]),
     )
+
+
+def steihaug_cg(
+    hess_prod: Callable[[Tensor], Tensor],
+    aug_jac: AugJac,
+    gradient: Tensor,
+    radius: Tensor,
+    max_iterations: int,
+    rel_tol: float = 1e-8,
+    abs_tol: float = 1e-12,
+    p0: Tensor | None = None,
+) -> TRResult:
+    """Projected CG with Steihaug boundary handling.  ``p0`` optionally
+    supplies the initial nullspace projection (the mixed-precision caller
+    passes one computed in float64)."""
+    setup, init = cg_start(aug_jac, gradient, radius, rel_tol, abs_tol, p0)
+    final = lockstep(lambda s: ~s["done"], cg_body(hess_prod, aug_jac, setup), init,
+                     max_trips=max_iterations)
+    return cg_result(final)

@@ -44,8 +44,6 @@ def update_penalty(
     assert m > 0
     unchanged = torch.zeros((), dtype=torch.bool, device=it.x.device)
 
-    cur_viol = current.violation / m
-
     def solve_at(pen, basis, feas):
         # MIXED/FEAS re-solves never trigger the reduced resolve
         # (standard_cauchy.c:932-945, DEFAULT objective only)
@@ -54,31 +52,51 @@ def update_penalty(
                                compute_dtype=compute_dtype)
 
     # skip when already (linearly) feasible enough (penalty.c:30-37)
-    skip = cur_viol <= VIOLATION_TOL
+    skip = penalty_skip(current, m)
     if not lanes_any(~skip):
         return penalty, current, unchanged
 
-    feas_res = solve_at(penalty, current.basis, True)
-    inf_viol = feas_res.violation / m
-    achievable = inf_viol <= VIOLATION_TOL
-    # if even the best violation is above tolerance and no progress is
-    # possible, keep the penalty (penalty.c:100-110)
-    keep = skip | ((~achievable) & (cur_viol - inf_viol <= VIOLATION_TOL))
+    keep, achievable, inf_viol = penalty_keep(current, solve_at(penalty, current.basis, True), m)
     if not lanes_any(~keep):
         return penalty, current, unchanged
 
     def body(s, trip):
         pen = s[0] * PENALTY_INCREASE
         result = solve_at(pen, s[1].basis, False)
-        next_viol = result.violation / m
-        ok = torch.where(achievable, next_viol <= VIOLATION_TOL,
-                         (cur_viol - next_viol) >= MIN_DECREASE * (cur_viol - inf_viol))
-        return pen, result, ok
+        return pen, result, penalty_ok(current, result, achievable, inf_viol, m)
 
     pen, result, _ = lockstep(lambda s: ~s[2], body, (penalty, current, keep),
                               max_trips=MAX_INCREASES, first=~keep)
     pen, result = lanes_where(~keep, (pen, result), (penalty, current))
     return pen, result, ~keep
+
+
+def penalty_skip(current: CauchyResult, m: int) -> Tensor:
+    """Whether the update is skipped: the LP step is (linearly) feasible
+    enough (penalty.c:30-37)."""
+    return current.violation / m <= VIOLATION_TOL
+
+
+def penalty_keep(current: CauchyResult, feas: CauchyResult, m: int):
+    """(whether the penalty stays, whether a feasible linearization is
+    achievable, the best violation) from the feasibility LP ``feas``: if
+    even the best violation is above tolerance and no progress is
+    possible, the penalty stays (penalty.c:100-110)."""
+    cur_viol = current.violation / m
+    inf_viol = feas.violation / m
+    achievable = inf_viol <= VIOLATION_TOL
+    keep = penalty_skip(current, m) | ((~achievable) & (cur_viol - inf_viol <= VIOLATION_TOL))
+    return keep, achievable, inf_viol
+
+
+def penalty_ok(current: CauchyResult, result: CauchyResult, achievable: Tensor,
+               inf_viol: Tensor, m: int) -> Tensor:
+    """Whether the LP at the increased penalty reduces the violation
+    enough (penalty.c:112-150)."""
+    cur_viol = current.violation / m
+    next_viol = result.violation / m
+    return torch.where(achievable, next_viol <= VIOLATION_TOL,
+                       (cur_viol - next_viol) >= MIN_DECREASE * (cur_viol - inf_viol))
 
 
 # Global penalty reset constants (trial_point/cauchy_step.c:15-17)

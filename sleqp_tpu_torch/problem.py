@@ -76,7 +76,14 @@ class Func:
     * ``accept_point``: optional x -> bool predicate; False rejects a
       trial point (the step is discarded and the trust radius shrinks).
       Non-finite objective or constraint values are rejected always.
+
+    ``runs_on_host`` says that the callables call host code (numpy, as
+    ``minimize``'s host path does): no CUDA graph can call them, so
+    ``Solver`` steps its eager loop (the reference calls them through
+    ``jax.pure_callback`` inside its compiled loop).
     """
+
+    runs_on_host = False
 
     def __init__(
         self,

@@ -16,8 +16,9 @@ since |c_i - s_i| bounds the violation when s lies inside the bounds.
 ``solve_with_restoration`` is the reference's in-graph form: its
 ``lax.cond`` on the INFEASIBLE status is one ``lanes.lanes_any`` read and,
 under ``torch.func.vmap`` (``parallel/batch.py``), lockstep restoration
-and resumed solves in which only the lanes that need them run, selected
-per lane at the end.  Outside ``vmap`` it is a branch on one host read.
+and resumed solves (``solve_from``) in which only the lanes that need them
+run, selected per lane at the end.  Outside ``vmap`` it is a branch on one
+host read and its solves run ``solve_jit`` (on the card, CUDA graphs).
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ import dataclasses
 import torch
 
 from .iterate import create_iterate, max_violation
-from .lanes import lanes_any, lanes_where
+from .lanes import is_batched, lanes_any, lanes_where
 from .problem import LSQFunc, Problem
-from .problem_solver import initial_state, solve_from
+from .problem_solver import initial_state, solve_from, solve_jit
 from .settings import Settings
 from .types import Status
 
@@ -97,15 +98,17 @@ def solve_with_restoration(problem: Problem, settings: Settings, state0, max_ite
     if max_restoration_iterations is None:
         max_restoration_iterations = max_iterations
     n = problem.num_variables
+    # one instance runs the fused loop; lanes keep the lockstep loop
+    solve_loop = solve_from if is_batched(state0.status) else solve_jit
 
-    out = solve_from(problem, settings, state0, max_iterations)
+    out = solve_loop(problem, settings, state0, max_iterations)
     infeasible = out.status == int(Status.INFEASIBLE)
     if not lanes_any(infeasible):
         return out
     z0 = restoration_initial_point(problem, out.it.x)
     rs0 = initial_state(rest_problem, rest_settings, z0, device=problem.device)
     rs0 = dataclasses.replace(rs0, status=lanes_where(infeasible, rs0.status, out.status))
-    rest = solve_from(rest_problem, rest_settings, rs0, max_restoration_iterations)
+    rest = solve_loop(rest_problem, rest_settings, rs0, max_restoration_iterations)
     x_restored = rest.it.x[:n]
     viol = max_violation(problem.data, problem.cons_val(x_restored))
     recovered = infeasible & (viol <= settings.feas_tol * 10.0)
@@ -118,4 +121,4 @@ def solve_with_restoration(problem: Problem, settings: Settings, state0, max_ite
     running = torch.full_like(out.status, int(Status.RUNNING))
     resumed0 = dataclasses.replace(out, it=new_it,
                                    status=lanes_where(recovered, running, out.status))
-    return lanes_where(recovered, solve_from(problem, settings, resumed0, max_iterations), out)
+    return lanes_where(recovered, solve_loop(problem, settings, resumed0, max_iterations), out)

@@ -19,11 +19,15 @@ settings).solve()`` runs on the CUDA card unless given ``device="cpu"``:
 * the solution and state queries (pub_solver.h:26-100).
 
 The reference has two loops, a fused ``lax.while_loop`` and a Python loop
-for callbacks, time limits and logging.  Here there is one eager loop with
-two host reads per iteration: the status and the iteration before it, and
-the iteration, the step type, the assert bitmask and the finiteness of the
-iterate's values after it.  The callbacks fire at the reference's events
-in its order.
+for callbacks, time limits and logging, and takes the Python loop only when
+one of those asks for it (``_needs_python_loop``).  So does the port: the
+fused loop is ``problem_solver.solve_jit`` (on the card CUDA graphs, the
+asserts and float flags checked once after it, as the reference does); the
+Python loop is an eager loop with two host reads per iteration: the status
+and the iteration before it, and the iteration, the step type, the assert
+bitmask and the finiteness of the iterate's values after it.  The callbacks
+fire at the reference's events in its order.  The restoration solves run
+``solve_jit`` too.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from .problem_solver import (
     initial_state,
     perform_iteration,
     solve_from,
+    solve_jit,
 )
 from .restoration import make_restoration_problem, restoration_initial_point, restoration_settings
 from .scale import ScaledProblem, derive_scaling
@@ -165,6 +170,14 @@ class Solver:
 
     # -- solve ----------------------------------------------------------
 
+    def _needs_python_loop(self, time_limit) -> bool:
+        """Whether the solve steps in the Python loop: a callback other
+        than FINISHED, a time limit or INFO logging asks for it, or the
+        problem's callables run on the host (``Func.runs_on_host``)."""
+        return (any(self._callbacks[e] for e in SolverEvent if e != SolverEvent.FINISHED)
+                or time_limit is not None or logger.isEnabledFor(logging.INFO)
+                or self.original_problem.func.runs_on_host)
+
     def solve(self, max_iterations: int = 1000, time_limit: Optional[float] = None) -> Status:
         start = time.perf_counter()
         self._abort_requested = False
@@ -180,8 +193,12 @@ class Solver:
             return self.status
 
         state = initial_state(self.problem, self.settings, self.x0, device=self.device)
+        python_loop = self._needs_python_loop(time_limit)
         while True:
-            state = self._iterate(state, max_iterations, time_limit, start)
+            if python_loop:
+                state = self._iterate(state, max_iterations, time_limit, start)
+            else:
+                state = self._solve_jit(state, max_iterations)
             status = Status(int(state.status))
             if (status != Status.INFEASIBLE or not self.settings.enable_restoration_phase
                     or self.problem.num_cons == 0 or self.num_phase_toggles >= MAX_PHASE_TOGGLES):
@@ -245,6 +262,23 @@ class Solver:
                         fn(self)
         return state
 
+    def _solve_jit(self, state: SolverState, max_iterations: int) -> SolverState:
+        """The fused loop (``solve_jit``), then the assert bitmask and the
+        finiteness of the iterate's values, in one read."""
+        settings = self.settings
+        state = solve_jit(self.problem, settings, state, max_iterations)
+        self.state = state
+        finite = (torch.isfinite(state.it.obj_val) & torch.isfinite(state.it.cons_val).all()
+                  if _float_flags_on(settings)
+                  else torch.ones((), dtype=torch.bool, device=self.device))
+        iteration, assert_fail, is_finite = torch.stack([
+            state.iteration, state.num_assert_fail, finite.to(torch.int32)]).tolist()
+        if settings.num_asserts and assert_fail:
+            raise MathError(assert_fail)
+        if not is_finite:
+            _raise_or_warn_nonfinite(settings, state, iteration)
+        return state
+
     @staticmethod
     def _with_status(state: SolverState, status: Status) -> SolverState:
         return dataclasses.replace(state, status=torch.full_like(state.status, int(status)))
@@ -265,8 +299,11 @@ class Solver:
         # violation) is still large.  So the restoration tolerances tighten
         # and the solve goes on while its "optimum" leaves the original
         # infeasible.
+        # the fused loop, but where the callables run on the host, which no
+        # CUDA graph can call
+        solve_loop = solve_from if self.original_problem.func.runs_on_host else solve_jit
         for _ in range(3):
-            rest_state = solve_from(rest_problem, rs,
+            rest_state = solve_loop(rest_problem, rs,
                                     initial_state(rest_problem, rs, z, device=self.device),
                                     max_iterations)
             rest_status = Status(int(rest_state.status))

@@ -26,10 +26,11 @@ from sleqp_tpu import Settings as JaxSettings
 from sleqp_tpu.harness.hs import get_problem as jax_get_problem
 from sleqp_tpu.parallel import batch as jbatch
 from sleqp_tpu.types import LPSolver as JaxLPSolver
-from sleqp_tpu_torch import LPSolver, Settings, Status, solve
+from sleqp_tpu_torch import LPSolver, Settings, Status, initial_state, solve
 from sleqp_tpu_torch.harness.hs import get_problem
 from sleqp_tpu_torch.ops import pdlp
 from sleqp_tpu_torch.parallel import batch as pb
+from sleqp_tpu_torch.problem_solver import solve_from
 from test_torch_batch import HostReads
 from test_torch_pdlp import _lp, _random_lp
 from torch_parity import no_jax_cache_writes, one_torch_thread  # noqa: F401
@@ -113,7 +114,12 @@ def test_host_reads_do_not_grow_with_lanes():
         reads[4 * copies] = counter.count
         assert np.all(out.status.numpy() == Status.OPTIMAL)
     assert reads[4] == reads[64] > 0, reads
+    # one lane's eager loop reads as the single-lane loop did; solve_jit no
+    # more
     with HostReads() as counter:
-        out = solve(tp, SETTINGS, x0b[0], MAX_IT, device="cpu")
+        out = solve_from(tp, SETTINGS, initial_state(tp, SETTINGS, x0b[0], device="cpu"), MAX_IT)
     assert int(out.status) == Status.OPTIMAL
     assert counter.count == LANE_READS
+    with HostReads() as counter:
+        graph = solve(tp, SETTINGS, x0b[0], MAX_IT, device="cpu")
+    assert counter.count <= LANE_READS and torch.equal(graph.it.x, out.it.x)

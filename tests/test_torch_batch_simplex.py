@@ -48,6 +48,7 @@ from sleqp_tpu_torch.harness.hs import get_problem
 from sleqp_tpu_torch.lanes import vmap_lanes
 from sleqp_tpu_torch.ops import simplex as ts
 from sleqp_tpu_torch.parallel import batch as pb
+from sleqp_tpu_torch.problem_solver import solve_from
 from sleqp_tpu_torch.types import BaseStat
 from test_torch_batch import HostReads
 from test_torch_simplex import _lp, _random_lp
@@ -437,8 +438,9 @@ def test_cauchy_lp_lanes_match_single_lane(compute_dtype, max_iterations, monkey
 
 def test_host_reads_do_not_grow_with_lanes():
     """hs118's first four lanes alone and sixteen times over read equally
-    often; one lane reads as the single-lane loop did (LANE_READS), and so
-    does HS71 on the simplex."""
+    often; one lane's eager loop (``solve_from``) reads as the single-lane
+    loop did (LANE_READS), and so does HS71 on the simplex; ``solve``
+    (``solve_jit``) no more."""
     tp, _, _ = get_problem("hs118", "cpu")
     x0b = chip_smoke.lp_starts("hs118", 4)
     reads = {}
@@ -453,6 +455,10 @@ def test_host_reads_do_not_grow_with_lanes():
             "hs71": (torch_dense.hs71()[1], HS71[1], np.array([1.0, 5.0, 5.0, 1.0])),
     }.items():
         with HostReads() as counter:
-            out = solve(problem, settings, x0, MAX_IT, device="cpu")
+            out = solve_from(problem, settings, initial_state(problem, settings, x0, device="cpu"),
+                             MAX_IT)
         assert int(out.status) == Status.OPTIMAL
         assert counter.count == LANE_READS[name], (name, counter.count)
+        with HostReads() as counter:
+            graph = solve(problem, settings, x0, MAX_IT, device="cpu")
+        assert counter.count <= LANE_READS[name] and torch.equal(graph.it.x, out.it.x), name

@@ -37,8 +37,9 @@ import torch
 import torch_dense
 from sleqp_tpu.parallel import batch as jbatch
 from chip_smoke import certified_tie
-from sleqp_tpu_torch import Func, Problem, solve
+from sleqp_tpu_torch import Func, Problem, initial_state, solve
 from sleqp_tpu_torch.parallel import batch as pb
+from sleqp_tpu_torch.problem_solver import solve_from
 from test_torch_batch import HostReads
 
 # The single-lane solves of tests/test_torch_{quasi_newton,dyn,parametric}.py
@@ -149,12 +150,18 @@ def assert_reads_do_not_grow(tp, settings, x0b, max_it, solver=pb.batched_solve)
 
 
 def assert_seed_lane(key, tp, settings, x0, max_it):
-    """One lane's solve keeps the seed's host reads and bits (SEED_LANES)."""
-    reads, out = reads_of(lambda: solve(tp, settings, x0, max_it, device="cpu"))
+    """One lane's eager loop (``solve_from``) keeps the seed's host reads
+    and bits (SEED_LANES); ``solve`` (``solve_jit``) its bits, with no more
+    reads."""
+    s0 = initial_state(tp, settings, x0, device="cpu")
+    reads, out = reads_of(lambda: solve_from(tp, settings, s0, max_it))
     seed_reads, seed_iterations, seed_x = SEED_LANES[key]
     assert (reads, int(out.iteration)) == (seed_reads, seed_iterations), (key, reads,
                                                                          int(out.iteration))
     assert digest(out.it.x) == seed_x, key
+    graph_reads, graph = reads_of(lambda: solve(tp, settings, x0, max_it, device="cpu"))
+    assert graph_reads <= seed_reads and int(graph.iteration) == seed_iterations, key
+    assert digest(graph.it.x) == seed_x, key
 
 
 def digest(x):
